@@ -1,0 +1,9 @@
+"""Executable consensus specs over the port's kernels.
+
+``get_spec(fork, preset, device=None)`` returns a module-like spec object
+exposing the executable spec API for that fork×preset, with its device
+work on ``device`` (None: the CUDA card).  This slice builds phase0.
+"""
+from .builder import available_forks, get_spec
+
+__all__ = ["get_spec", "available_forks"]

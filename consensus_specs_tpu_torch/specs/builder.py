@@ -1,0 +1,593 @@
+"""Spec builder: exec fork sources layered over one another.
+
+Architecture (mirrors the reference's compiled-module semantics,
+setup.py:741-764, without the markdown round-trip):
+
+  * each fork has a Python *source template* in ``specs/src/<fork>.py``
+    written against free globals (SSZ types, ``bls``, ``hash``, preset
+    constants, ``config``);
+  * ``get_spec(fork, preset)`` builds a fresh module whose globals are
+    pre-seeded with the environment, then execs the source of every fork
+    up to and including the target in order — later definitions override
+    earlier ones, and because all functions share ONE globals dict, a
+    phase0 function calling ``process_epoch`` dispatches to the newest
+    fork's override, exactly like the reference's single flat module;
+  * the previous fork's finished module is injected under its name
+    (``phase0``, ``altair``, ...) so ``upgrade_to_<fork>`` functions can
+    reference predecessor types (reference: setup.py:456-461);
+  * after exec, a sundry layer installs LRU caches on hot accessors
+    (reference: setup.py:358-428) and semantics-preserving optimizations
+    (vectorized whole-committee shuffling; reference's analogue:
+    implement_optimizations, setup.py:65-68).
+
+Port of ``consensus_specs_tpu/specs/builder.py``.  A spec is built for one
+torch device (``get_spec(fork, preset, device=None)``; None is the CUDA
+card): its epoch substitutions run their tensor work there.  This slice
+builds the phase0 fork; the altair installs (participation kernel, sync
+aggregate index, altair epoch kernel) come with ROADMAP queue A, item 6.
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from dataclasses import dataclass, field
+from pathlib import Path
+from types import ModuleType
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    NamedTuple,
+    Optional,
+    Protocol,
+    Sequence,
+    Set,
+    Tuple,
+    TypeVar,
+)
+
+import numpy as np
+import torch
+
+from consensus_specs_tpu_torch._device import resolve_device
+from consensus_specs_tpu_torch.config import get_config, get_preset
+from consensus_specs_tpu_torch.crypto import bls
+from consensus_specs_tpu_torch.ops.shuffle import compute_shuffle_permutation
+from consensus_specs_tpu_torch.ssz import hashing
+from consensus_specs_tpu_torch.ssz.gindex import get_generalized_index
+from consensus_specs_tpu_torch.ssz.impl import copy, hash_tree_root, serialize, uint_to_bytes
+from consensus_specs_tpu_torch.ssz.types import (
+    Bitlist,
+    Bitvector,
+    ByteList,
+    ByteVector,
+    Container,
+    List,
+    Union,
+    Vector,
+    View,
+    boolean,
+    uint8,
+    uint16,
+    uint32,
+    uint64,
+    uint128,
+    uint256,
+)
+
+SRC_DIR = Path(__file__).parent / "src"
+
+# Fork topology: each fork execs its parent chain's sources then its own.
+# This slice of the port carries phase0 only.
+FORK_PARENTS = {
+    "phase0": None,
+}
+
+FORK_ORDER = ("phase0",)
+
+
+def fork_chain(fork: str) -> Tuple[str, ...]:
+    """Ancestor chain root-first, ending at ``fork``."""
+    chain = []
+    cur: Optional[str] = fork
+    while cur is not None:
+        chain.append(cur)
+        cur = FORK_PARENTS[cur]
+    return tuple(reversed(chain))
+
+# Config vars are typed when materialized (reference types them in the
+# Configuration NamedTuple, setup.py:632-639).
+_CONFIG_TYPES = {
+    "TERMINAL_TOTAL_DIFFICULTY": uint256,
+    "TERMINAL_BLOCK_HASH": ByteVector[32],
+    "GENESIS_FORK_VERSION": ByteVector[4],
+    "ALTAIR_FORK_VERSION": ByteVector[4],
+    "BELLATRIX_FORK_VERSION": ByteVector[4],
+    "CAPELLA_FORK_VERSION": ByteVector[4],
+    "SHARDING_FORK_VERSION": ByteVector[4],
+    "EIP4844_FORK_VERSION": ByteVector[4],
+    "CUSTODY_GAME_FORK_VERSION": ByteVector[4],
+    "DAS_FORK_VERSION": ByteVector[4],
+    "DEPOSIT_CONTRACT_ADDRESS": ByteVector[20],
+    "PRESET_BASE": str,
+    "CONFIG_NAME": str,
+}
+
+
+def available_forks() -> Tuple[str, ...]:
+    return tuple(f for f in FORK_ORDER if (SRC_DIR / f"{f}.py").exists())
+
+
+def _typed_config(raw: Dict[str, Any]):
+    from consensus_specs_tpu_torch.config.configs import Config
+
+    typed = {}
+    for k, v in raw.items():
+        t = _CONFIG_TYPES.get(k, uint64)
+        typed[k] = v if t is str else t(v)
+    return Config(typed)
+
+
+def _spec_hash_fn():
+    """Memoized sha256 — the reference also caches `hash` (it is called
+    with identical seeds thousands of times per shuffle)."""
+    sha = hashing.sha256
+    Bytes32 = ByteVector[32]
+    cache: Dict[bytes, bytes] = {}
+
+    def hash_fn(data: bytes) -> bytes:
+        data = bytes(data)
+        out = cache.get(data)
+        if out is None:
+            if len(cache) > 200_000:
+                cache.clear()
+            out = Bytes32(sha(data))
+            cache[data] = out
+        return out
+
+    return hash_fn
+
+
+def _base_env(preset: Dict[str, int], config) -> Dict[str, Any]:
+    env: Dict[str, Any] = {
+        # typing / dataclasses for spec annotations
+        "Any": Any,
+        "Callable": Callable,
+        "Dict": Dict,
+        "Set": Set,
+        "Sequence": Sequence,
+        "Tuple": Tuple,
+        "Optional": Optional,
+        "NamedTuple": NamedTuple,
+        "Protocol": Protocol,
+        "TypeVar": TypeVar,
+        "dataclass": dataclass,
+        "field": field,
+        # SSZ type system
+        "View": View,
+        "boolean": boolean,
+        "Container": Container,
+        "List": List,
+        "Vector": Vector,
+        "Union": Union,
+        "Bitlist": Bitlist,
+        "Bitvector": Bitvector,
+        "ByteList": ByteList,
+        "ByteVector": ByteVector,
+        "uint8": uint8,
+        "uint16": uint16,
+        "uint32": uint32,
+        "uint64": uint64,
+        "uint128": uint128,
+        "uint256": uint256,
+        "Bytes1": ByteVector[1],
+        "Bytes4": ByteVector[4],
+        "Bytes20": ByteVector[20],
+        "Bytes32": ByteVector[32],
+        "Bytes48": ByteVector[48],
+        "Bytes96": ByteVector[96],
+        # seams
+        "bls": bls,
+        "hash": _spec_hash_fn(),
+        "hash_tree_root": hash_tree_root,
+        "serialize": serialize,
+        "copy": copy,
+        "uint_to_bytes": uint_to_bytes,
+        "config": config,
+        # merkle-proof machinery (altair light client, merkle-proofs.md)
+        "GeneralizedIndex": int,
+        "get_generalized_index": get_generalized_index,
+        "floorlog2": lambda x: uint64(int(x).bit_length() - 1),
+    }
+    # preset vars become module constants, typed uint64 (setup.py emits
+    # them as typed constants the same way)
+    for k, v in preset.items():
+        env[k] = uint64(v)
+    return env
+
+
+class LRUDict:
+    """Small LRU dict (stand-in for the reference's lru-dict C extension,
+    setup.py:333).  Accesses refresh recency via move-to-end."""
+
+    __slots__ = ("size", "d")
+
+    def __init__(self, size: int):
+        self.size = size
+        self.d: Dict[Any, Any] = {}
+
+    def get(self, key, default=None):
+        if key in self.d:
+            return self[key]
+        return default
+
+    def __contains__(self, key):
+        return key in self.d
+
+    def __getitem__(self, key):
+        value = self.d.pop(key)
+        self.d[key] = value  # re-insert at the recent end
+        return value
+
+    def __setitem__(self, key, value):
+        if key not in self.d and len(self.d) >= self.size:
+            self.d.pop(next(iter(self.d)))  # evict least-recent
+        self.d[key] = value
+
+
+def cache_this(key_fn, value_fn, lru_size):
+    """Memoize ``value_fn`` under ``key_fn`` (reference: setup.py:369-379)."""
+    cache = LRUDict(lru_size)
+
+    def wrapper(*args, **kw):
+        key = key_fn(*args, **kw)
+        if key not in cache:
+            cache[key] = value_fn(*args, **kw)
+        return cache[key]
+
+    wrapper.__wrapped__ = value_fn
+    return wrapper
+
+
+def _install_sundry(g: Dict[str, Any]) -> None:
+    """LRU caches over hot accessors, keyed on (sub)tree roots so they
+    survive state copies (reference: setup.py:380-428)."""
+    SLOTS_PER_EPOCH = int(g["SLOTS_PER_EPOCH"])
+    MAX_COMMITTEES_PER_SLOT = int(g["MAX_COMMITTEES_PER_SLOT"])
+
+    g["cache_this"] = cache_this
+
+    g["compute_shuffled_index"] = cache_this(
+        lambda index, index_count, seed: (index, index_count, seed),
+        g["compute_shuffled_index"], lru_size=SLOTS_PER_EPOCH * 3)
+
+    g["get_total_active_balance"] = cache_this(
+        lambda state: (state.validators.hash_tree_root(), g["compute_epoch_at_slot"](state.slot)),
+        g["get_total_active_balance"], lru_size=10)
+
+    g["get_base_reward"] = cache_this(
+        lambda state, index: (state.validators.hash_tree_root(), state.slot, index),
+        g["get_base_reward"], lru_size=2048)
+
+    g["get_committee_count_per_slot"] = cache_this(
+        lambda state, epoch: (state.validators.hash_tree_root(), epoch),
+        g["get_committee_count_per_slot"], lru_size=SLOTS_PER_EPOCH * 3)
+
+    g["get_active_validator_indices"] = cache_this(
+        lambda state, epoch: (state.validators.hash_tree_root(), epoch),
+        g["get_active_validator_indices"], lru_size=3)
+
+    g["get_beacon_committee"] = cache_this(
+        lambda state, slot, index: (
+            state.validators.hash_tree_root(), state.randao_mixes.hash_tree_root(), slot, index),
+        g["get_beacon_committee"], lru_size=SLOTS_PER_EPOCH * MAX_COMMITTEES_PER_SLOT * 3)
+
+    g["get_matching_target_attestations"] = cache_this(
+        lambda state, epoch: (state.hash_tree_root(), epoch),
+        g["get_matching_target_attestations"], lru_size=10)
+
+    g["get_matching_head_attestations"] = cache_this(
+        lambda state, epoch: (state.hash_tree_root(), epoch),
+        g["get_matching_head_attestations"], lru_size=10)
+
+    g["get_attesting_indices"] = cache_this(
+        lambda state, data, bits: (
+            state.randao_mixes.hash_tree_root(),
+            state.validators.hash_tree_root(), data.hash_tree_root(), bits.hash_tree_root(),
+        ),
+        g["get_attesting_indices"], lru_size=SLOTS_PER_EPOCH * MAX_COMMITTEES_PER_SLOT * 3)
+
+
+def _install_optimizations(g: Dict[str, Any], device: torch.device) -> None:
+    """Semantics-preserving substitutions (the reference sanctions these
+    via implement_optimizations, setup.py:65-68).
+
+    ``compute_committee`` is replaced with a whole-permutation variant:
+    one vectorized pass produces every committee of the epoch instead of
+    2×rounds SHA-256 per member (differential test: tests/test_shuffle.py).
+    """
+    round_count = int(g["SHUFFLE_ROUND_COUNT"])
+    uint64_t = g["uint64"]
+
+    def compute_committee(indices, seed, index, count):
+        n = len(indices)
+        start = (n * index) // count
+        end = (n * uint64_t(index + 1)) // count
+        # Failure-semantics parity with the sequential spec: an out-of-range
+        # committee index makes compute_shuffled_index trip its
+        # `index < index_count` assert there; raise AssertionError here too,
+        # not IndexError (fork-choice handlers catch AssertionError only).
+        assert end <= n
+        perm = compute_shuffle_permutation(bytes(seed), n, round_count)
+        return [indices[perm[i]] for i in range(start, end)]
+
+    compute_committee.__doc__ = g["compute_committee"].__doc__
+    compute_committee.__wrapped__ = g["compute_committee"]
+    g["compute_committee"] = compute_committee
+
+    _install_registry_vectorization(g)
+    _install_attestation_pubkey_column(g)
+    _install_phase0_epoch_kernel(g, device)
+    _install_deferred_block_verification(g)
+
+
+def _install_attestation_pubkey_column(g: Dict[str, Any]) -> None:
+    """Swap the per-index pubkey gather in is_valid_indexed_attestation
+    (``[state.validators[i].pubkey for i in indices]`` — a tree descent +
+    view materialization per member, ~25k reads per mainnet block) for a
+    registry-root-cached pubkey column read (ssz/bulk.py, one walk per
+    registry version).  Semantics preserved exactly: same emptiness /
+    sorted-unique gate, same IndexError on out-of-range indices, same
+    verification call.  Differential test:
+    tests/spec/phase0/test_pubkey_column.py."""
+    from consensus_specs_tpu_torch.ssz import bulk
+
+    def is_valid_indexed_attestation(state, indexed_attestation):
+        indices = indexed_attestation.attesting_indices
+        if len(indices) == 0 or not indices == sorted(set(indices)):
+            return False
+        column = bulk.cached_validator_pubkeys(state.validators)
+        pubkeys = [column[int(i)] for i in indices]
+        domain = g["get_domain"](state, g["DOMAIN_BEACON_ATTESTER"],
+                                 indexed_attestation.data.target.epoch)
+        signing_root = g["compute_signing_root"](
+            indexed_attestation.data, domain)
+        return g["bls"].FastAggregateVerify(
+            pubkeys, signing_root, indexed_attestation.signature)
+
+    _swap(g, "is_valid_indexed_attestation", is_valid_indexed_attestation)
+
+
+def _install_deferred_block_verification(g: Dict[str, Any]) -> None:
+    """Batch a block's aggregate-signature checks into one pairing product.
+
+    ``process_block`` runs under ``bls.deferred_fast_aggregate_verify``:
+    every FastAggregateVerify its operations issue (attestations via
+    is_valid_indexed_attestation, attester slashings, altair+ sync
+    aggregates) is collected and settled in a single batched verification
+    with one shared final exponentiation — the sanctioned sundry-layer
+    substitution (SURVEY §7; reference analogue setup.py:488-492).  Failure
+    ordering is preserved by the context manager: the AssertionError names
+    the first failing check in sequential call order.  Differential tests:
+    tests/spec/phase0/test_batch_verification.py.
+
+    CONTRACT — state mutation on failure: execution is optimistic, so an
+    operation whose aggregate signature is invalid has already mutated
+    ``state`` (e.g. an attester slashing applied) by the time the deferred
+    settlement raises at scope exit.  The sequential reference path asserts
+    BEFORE applying.  Callers must therefore treat ``state`` as poisoned
+    whenever process_block raises — exactly what every in-repo caller
+    (state_transition wrappers, the test harness, gen runners) already
+    does by discarding the failed state object."""
+    from consensus_specs_tpu_torch.crypto import bls as bls_mod
+
+    orig = g["process_block"]
+
+    def process_block(state, block):
+        with bls_mod.deferred_fast_aggregate_verify():
+            orig(state, block)
+
+    process_block.__doc__ = orig.__doc__
+    process_block.__wrapped__ = orig
+    g["process_block"] = process_block
+
+
+def _swap(g: Dict[str, Any], name: str, fn) -> None:
+    orig = g[name]
+    fn.__doc__ = orig.__doc__
+    fn.__wrapped__ = orig
+    g[name] = fn
+
+
+# process_slashings carries a fork-specific proportional multiplier
+# constant
+_SLASHING_MULT = {
+    "phase0": "PROPORTIONAL_SLASHING_MULTIPLIER",
+}
+
+
+def _install_registry_vectorization(g: Dict[str, Any]) -> None:
+    """Fork-independent O(n) registry scans -> columns off the Merkle
+    backing + numpy (semantics-preserving; sequential originals stay on
+    __wrapped__; differential tests in tests/spec/phase0/test_epoch_kernel.py).
+    Runs BEFORE the sundry layer so its LRU caches wrap these."""
+    from consensus_specs_tpu_torch.ops import epoch as epoch_ops
+
+    proxy = _LiveSpecProxy(g)
+    Gwei = g["Gwei"]
+    Vidx = g["ValidatorIndex"]
+
+    _swap(g, "get_active_validator_indices",
+          lambda state, epoch: [
+              Vidx(i) for i in epoch_ops.active_validator_indices(proxy, state, epoch)
+          ])
+    _swap(g, "get_total_active_balance",
+          lambda state: Gwei(epoch_ops.total_active_balance(proxy, state)))
+    _swap(g, "process_effective_balance_updates",
+          lambda state: epoch_ops.effective_balance_updates(proxy, state))
+    _swap(g, "process_registry_updates",
+          lambda state: epoch_ops.registry_updates(proxy, state))
+
+    mult_name = _SLASHING_MULT[g["fork"]]
+
+    def process_slashings(state):
+        epoch_ops.slashings_sweep(proxy, state, int(g[mult_name]))
+
+    _swap(g, "process_slashings", process_slashings)
+
+
+class _LiveSpecProxy:
+    """Attribute view over a spec module's globals dict; hands the epoch
+    kernels a `spec`-shaped object that sees sundry-layer caches."""
+
+    def __init__(self, g: Dict[str, Any]):
+        self._g = g
+
+    def __getattr__(self, name: str):
+        try:
+            return self._g[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+def _install_phase0_epoch_kernel(g: Dict[str, Any], device: torch.device) -> None:
+    """Swap the O(validators x attestations) Python rewards loop for the
+    vectorized torch deltas on ``device`` + bulk balance write (SURVEY §7
+    step 7; sanctioned-substitution pattern of reference setup.py:65-68).
+    At ``RESIDENT_MIN`` validators and up, the deltas, the balance update
+    and the balances' merkle root run as one fused pass on ``device``.
+    Differential tests: tests/test_torch_spec_phase0.py."""
+    from consensus_specs_tpu_torch.ops import epoch as epoch_ops
+    from consensus_specs_tpu_torch.ops import merkle_resident
+
+    proxy = _LiveSpecProxy(g)
+    Gwei = g["Gwei"]
+    orig_deltas = g["get_attestation_deltas"]
+    orig_rap = g["process_rewards_and_penalties"]
+
+    def get_attestation_deltas(state):
+        rewards, penalties = epoch_ops.attestation_deltas_for_state(proxy, state, device)
+        return (
+            [Gwei(int(x)) for x in rewards],
+            [Gwei(int(x)) for x in penalties],
+        )
+
+    get_attestation_deltas.__doc__ = orig_deltas.__doc__
+    get_attestation_deltas.__wrapped__ = orig_deltas
+    g["get_attestation_deltas"] = get_attestation_deltas
+
+    def process_rewards_and_penalties(state):
+        from consensus_specs_tpu_torch.stf import columns as stf_columns
+
+        if g["get_current_epoch"](state) == g["GENESIS_EPOCH"]:
+            return
+        inp = epoch_ops.extract_delta_inputs(proxy, state)
+        # balance read + write ride the resident column store:
+        # the read is a dict probe when any earlier consumer touched this
+        # version, and the flush stages the written array so the rest of
+        # the epoch transition (slashings, hysteresis, resident upload)
+        # never re-walks the subtree
+        balances = stf_columns.balance_column(state)
+        resident = merkle_resident.resident_device(len(balances), device)
+        cache_key = epoch_ops.delta_device_cache(proxy, state)
+        if resident is not None:
+            # residency composes: deltas kernel + balance update + merkle
+            # reduction in ONE device program; the device-computed subtree
+            # root is memoized into the fresh backing so the next state
+            # root never hashes the balances subtree on host
+            new_balances, padded_root = merkle_resident.fused_epoch_balance_update(
+                inp, balances, resident, device_cache=cache_key)
+            stf_columns.flush_balances(state, new_balances)
+            merkle_resident.memoize_packed_u64_contents_root(
+                state.balances, padded_root)
+            return
+        rewards, penalties = epoch_ops.attestation_deltas(
+            inp, device, device_cache=cache_key)
+        increased = balances + rewards
+        new_balances = np.where(penalties > increased, 0, increased - penalties)
+        stf_columns.flush_balances(state, new_balances)
+
+    process_rewards_and_penalties.__doc__ = orig_rap.__doc__
+    process_rewards_and_penalties.__wrapped__ = orig_rap
+    g["process_rewards_and_penalties"] = process_rewards_and_penalties
+
+    _swap(g, "get_attesting_balance",
+          lambda state, attestations: g["Gwei"](
+              epoch_ops.attesting_balance(proxy, state, attestations)))
+
+    # the epoch's pending scans ride ONE shared memoized pass (target +
+    # head computed together, both key halves memoized subtree roots)
+    # instead of two per-pending listcomps LRU'd on the full state root;
+    # downstream attester resolution already rides the plan-cache path
+    # (epoch_ops.attesting_indices).  Differential:
+    # tests/spec/phase0/test_epoch_kernel.py::test_matching_scans in the
+    # reference
+    _swap(g, "get_matching_target_attestations",
+          lambda state, epoch: epoch_ops.matching_target_attestations(
+              proxy, state, epoch))
+    _swap(g, "get_matching_head_attestations",
+          lambda state, epoch: epoch_ops.matching_head_attestations(
+              proxy, state, epoch))
+
+
+# RLock: building fork F recursively resolves its predecessor via get_spec
+_lock = threading.RLock()
+_spec_cache: Dict[Tuple[str, str, str], ModuleType] = {}
+
+
+def build_spec(fork: str, preset_name: str, device=None) -> ModuleType:
+    """Build a fresh spec module (uncached) whose device work runs on
+    ``device`` (None: the CUDA card)."""
+    assert fork in FORK_PARENTS, f"unknown fork {fork}"
+    device = resolve_device(device)
+    preset = get_preset(preset_name)
+    cfg = _typed_config(get_config(preset_name).to_dict())
+
+    # the device is part of the name: a cpu and a cuda build of one fork
+    # must not replace each other in sys.modules
+    dev_tag = str(device).replace(":", "_")
+    mod_name = f"consensus_specs_tpu_torch.specs.{fork}_{preset_name}_{dev_tag}"
+    mod = ModuleType(mod_name)
+    g = mod.__dict__
+    g.update(_base_env(preset, cfg))
+    g["fork"] = fork
+    g["preset_name"] = preset_name
+    # dataclasses (and pickling) resolve classes through sys.modules
+    sys.modules[mod_name] = mod
+
+    prev: Optional[ModuleType] = None
+    for f in fork_chain(fork):
+        if prev is not None:
+            # predecessor module available under its fork name for
+            # upgrade_to_* functions
+            g[prev.fork] = prev
+        src = (SRC_DIR / f"{f}.py").read_text()
+        # dont_inherit: this module's `from __future__ import annotations`
+        # must NOT leak into spec sources (containers need live types)
+        code = compile(src, str(SRC_DIR / f"{f}.py"), "exec", dont_inherit=True)
+        exec(code, g)
+        if f == fork:
+            break
+        # snapshot the intermediate fork as its own finished spec so
+        # upgrade functions see the *complete* predecessor
+        prev = get_spec(f, preset_name, device)
+
+    # optimizations first: the sundry LRU caches then wrap the vectorized
+    # accessors (get_total_active_balance etc.), not the sequential ones
+    _install_optimizations(g, device)
+    _install_sundry(g)
+    return mod
+
+
+def get_spec(fork: str, preset_name: str = "minimal", device=None) -> ModuleType:
+    """Cached spec module for fork×preset×device (reference: the 8-module
+    registry in test/context.py:73-86).  ``device`` None is the CUDA card;
+    without one this raises rather than build a CPU spec."""
+    device = resolve_device(device)
+    key = (fork, preset_name, str(device))
+    with _lock:
+        spec = _spec_cache.get(key)
+        if spec is None:
+            spec = build_spec(fork, preset_name, device)
+            _spec_cache[key] = spec
+    return spec

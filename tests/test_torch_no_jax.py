@@ -1,0 +1,129 @@
+"""The torch port stands alone: no JAX and nothing of the reference package.
+
+* a subprocess with ``jax`` blocked and an import blocker for
+  ``consensus_specs_tpu`` imports every module of the port and builds the
+  minimal phase0 spec on the CPU (a subprocess, because the test session
+  itself imports jax);
+* a static scan of the port's sources finds no such import;
+* without ``device=`` the port runs on CUDA or raises — never quietly on
+  the CPU.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PORT = "consensus_specs_tpu_torch"
+REFERENCE = "consensus_specs_tpu"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_BLOCKED_IMPORT_SCRIPT = r"""
+import importlib, pkgutil, sys
+
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+
+
+class _BlockReference:
+    def find_spec(self, name, path=None, target=None):
+        if name == "consensus_specs_tpu" or name.startswith("consensus_specs_tpu."):
+            raise ImportError(f"the port imported the reference: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _BlockReference())
+
+import consensus_specs_tpu_torch as port
+
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+
+from consensus_specs_tpu_torch.specs import get_spec
+
+spec = get_spec("phase0", "minimal", device="cpu")
+assert spec.SLOTS_PER_EPOCH == 8
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))
+assert leaked == ["jax"], leaked  # only the blocking None entry
+print("imported", len(names), "modules")
+"""
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT_SCRIPT],
+                          cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "imported" in proc.stdout
+
+
+def _is_forbidden(module: str) -> bool:
+    """jax, or the reference package — never the port, whose name the
+    reference's is a prefix of."""
+    for banned in ("jax", REFERENCE):
+        if module == banned or module.startswith(banned + "."):
+            return True
+    return False
+
+
+def test_forbidden_name_check_respects_the_prefix():
+    assert _is_forbidden("consensus_specs_tpu")
+    assert _is_forbidden("consensus_specs_tpu.ops.sha256_jax")
+    assert _is_forbidden("jax.numpy")
+    assert not _is_forbidden("consensus_specs_tpu_torch")
+    assert not _is_forbidden("consensus_specs_tpu_torch.ops.sha256")
+    assert not _is_forbidden("jaxlike")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_static_scan_finds_no_jax_or_reference_import():
+    sources = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 20
+    offenders = [(str(p.relative_to(ROOT)), name)
+                 for p in sources for name in _imports(p) if _is_forbidden(name)]
+    assert offenders == []
+
+
+def test_hashing_lazy_backends_name_only_the_port():
+    from consensus_specs_tpu_torch.ssz import hashing
+
+    assert hashing._LAZY_BACKENDS == {"torch": f"{PORT}.ops.sha256"}
+
+
+def test_get_spec_without_device_refuses_a_host_without_cuda(monkeypatch):
+    from consensus_specs_tpu_torch.specs import get_spec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_spec("phase0", "minimal")
+    # the explicit CPU request still builds
+    assert get_spec("phase0", "minimal", device="cpu").SLOTS_PER_EPOCH == 8
+
+
+def test_built_specs_are_named_by_device():
+    from consensus_specs_tpu_torch.specs import get_spec
+
+    spec = get_spec("phase0", "minimal", device="cpu")
+    assert spec.__name__ == f"{PORT}.specs.phase0_minimal_cpu"
+    assert sys.modules[spec.__name__] is spec
