@@ -57,16 +57,6 @@ def use_native() -> None:
     use_backend("native")
 
 
-def use_fastest() -> None:
-    """Prefer the native C++ backend, falling back to the Python oracle
-    (mirrors the reference's bls_active default of the fastest available
-    backend for CI; eth2spec/utils/bls.py:8-30)."""
-    try:
-        use_backend("native")
-    except ImportError:
-        use_backend("python")
-
-
 def backend_name() -> str:
     return _backend_name
 

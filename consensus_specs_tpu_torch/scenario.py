@@ -149,23 +149,22 @@ def attestations_for(spec, st, block_slot: int) -> list:
     return atts
 
 
-def build_epoch_blocks(spec, state, n_slots: int = None) -> list:
+def build_epoch_blocks(spec, state) -> list:
     """Construct and sign one epoch of full blocks from ``state`` (which is
     left untouched).  Verification is off while constructing; the caller's
-    ``bls.bls_active`` is restored afterwards.  ``n_slots`` shortens the
-    walk."""
+    ``bls.bls_active`` is restored afterwards."""
     was_active = bls.bls_active
     bls.bls_active = False
     try:
-        return _build_epoch_blocks(spec, state, n_slots)
+        return _build_epoch_blocks(spec, state)
     finally:
         bls.bls_active = was_active
 
 
-def _build_epoch_blocks(spec, state, n_slots):
+def _build_epoch_blocks(spec, state):
     build_st = state.copy()
     signed_blocks = []
-    for _ in range(int(n_slots or spec.SLOTS_PER_EPOCH)):
+    for _ in range(int(spec.SLOTS_PER_EPOCH)):
         slot = int(build_st.slot) + 1
         stub = build_st.copy()
         spec.process_slots(stub, slot)

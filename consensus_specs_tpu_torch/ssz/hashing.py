@@ -43,37 +43,9 @@ _active: Callable[[List[bytes]], List[bytes]] = _hashlib_hash_layer
 # backend: device dispatch overhead dominates tiny layers.
 MIN_DEVICE_BATCH = 256
 
-# Trees smaller than this (total branch nodes) are hashed per-layer on
-# host even when a device wave backend is active.
-MIN_DEVICE_TREE = 4096
-
 
 def register_backend(name: str, fn: Callable[[List[bytes]], List[bytes]]) -> None:
     _BACKENDS[name] = fn
-
-
-# -- whole-tree wave hashing (optional backend capability) ------------------
-#
-# A wave backend runs an entire merkle wave schedule as ONE device
-# program: ``fn(known, waves) -> digests`` where ``known`` is the list of
-# already-rooted 32-byte child digests, ``waves`` is a list of
-# (left_idx, right_idx) int32 index-array pairs into the digest pool
-# (known rows first, then every prior wave's outputs), and the result is
-# the concatenated 32-byte outputs of every wave.  This removes the
-# per-tree-level host<->device round trip that dominates layered hashing
-# on high-latency links.
-
-_WAVE_BACKENDS: Dict[str, Callable] = {}
-
-
-def register_wave_backend(name: str, fn: Callable) -> None:
-    _WAVE_BACKENDS[name] = fn
-
-
-def get_wave_hasher():
-    """The active backend's whole-tree wave hasher, or None if the active
-    backend hashes per-layer only (hashlib default)."""
-    return _WAVE_BACKENDS.get(_active_name)
 
 
 # Device backends register lazily on selection (importing them pulls in

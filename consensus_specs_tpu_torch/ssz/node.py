@@ -21,12 +21,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-from .hashing import (
-    MIN_DEVICE_TREE,
-    ZERO_HASHES,
-    get_wave_hasher,
-    hash_layer,
-)
+from .hashing import ZERO_HASHES, hash_layer
 
 
 class Node:
@@ -112,53 +107,11 @@ def merkle_root(node: Node) -> bytes:
         waves.append(ready)
         rest = later
 
-    wave_hasher = get_wave_hasher() if len(seen) >= MIN_DEVICE_TREE else None
-    if wave_hasher is not None:
-        _hash_waves_on_device(waves, wave_hasher)
-    else:
-        for wave in waves:
-            digests = hash_layer([n.left._root + n.right._root for n in wave])
-            for n, d in zip(wave, digests):
-                n._root = d
+    for wave in waves:
+        digests = hash_layer([n.left._root + n.right._root for n in wave])
+        for n, d in zip(wave, digests):
+            n._root = d
     return node._root  # type: ignore[return-value]
-
-
-def _hash_waves_on_device(waves: "List[List[BranchNode]]", wave_hasher) -> None:
-    """Run the whole wave schedule as one device program: upload the
-    deduped known child digests once, gather+compress every level inside
-    a single dispatch, download all produced digests once (the per-level
-    round trip is what dominates layered hashing over slow links)."""
-    import numpy as np
-
-    known: List[bytes] = []
-    known_index = {}
-    for wave in waves:
-        for n in wave:
-            for c in (n.left, n.right):
-                if c._root is not None and id(c) not in known_index:
-                    known_index[id(c)] = len(known)
-                    known.append(c._root)
-    out_index = {}
-    pos = len(known)
-    for wave in waves:
-        for n in wave:
-            out_index[id(n)] = pos
-            pos += 1
-
-    def cidx(c):
-        return known_index[id(c)] if c._root is not None else out_index[id(c)]
-
-    index_waves = [
-        (np.array([cidx(n.left) for n in wave], dtype=np.int32),
-         np.array([cidx(n.right) for n in wave], dtype=np.int32))
-        for wave in waves
-    ]
-    digests = wave_hasher(known, index_waves)
-    k = 0
-    for wave in waves:
-        for n in wave:
-            n._root = digests[k]
-            k += 1
 
 
 def branch_with_root(left: Node, right: Node, root: bytes) -> BranchNode:

@@ -71,8 +71,14 @@ def test_deltas_kernel_matches_reference(n, finality_delay):
     assert got_r.dtype == torch.int64 and got_p.dtype == torch.int64
     assert np.array_equal(got_r.numpy(), np.asarray(ref_r))
     assert np.array_equal(got_p.numpy(), np.asarray(ref_p))
-    # the leak case does penalise more than the plain one
     assert (np.asarray(ref_p) > 0).any()
+    if finality_delay > inp.min_epochs_to_inactivity_penalty:
+        # the leak penalises the same validators more than the calm case
+        calm, _ = _inputs(n, 2)
+        _, calm_p = epoch._deltas_kernel(
+            *map(torch.as_tensor, _arrays(calm)),
+            torch.as_tensor(epoch.delta_scalars(calm)))
+        assert int(got_p.sum()) > int(calm_p.sum())
 
 
 @pytest.mark.parametrize("n,finality_delay", CASES, ids=IDS)
