@@ -11,10 +11,15 @@ subtree root into the freshly written host backing via
 ``memoize_packed_u64_contents_root``, so the next ``hash_tree_root(state)``
 skips the balances subtree entirely.
 
-The reduction calls the SHA-256 compression once per tree level: K1
-(``csrc/sha256.cu``) on CUDA, its plain torch version on the CPU
-(``ops/sha256.sha256_block64``).  Words are int64 tensors holding uint32
-values until they cross into the compression as int32 bit patterns.
+The reduction is ``packed_u64_root``: on CUDA it launches K2
+(``csrc/sha256_tree.cu``), which packs the values into chunk words in its
+load and reduces the whole tree in one launch up to 512 chunks and two
+up to 2^18 (the main path's 400k balances are 2^17 chunks).
+On the CPU it runs the plain version, ``_reduce_to_root``, the reference's
+shape: split, byteswap and pack in torch, then the SHA-256 compression once
+per tree level (``ops/sha256.sha256_block64``).  Words there are int64
+tensors holding uint32 values until they cross into the compression as
+int32 bit patterns.
 
 Reference seams: eth2spec/utils/ssz/ssz_impl.py:12-13 (hash_tree_root =
 backing.merkle_root()); merkleization rules ssz/simple-serialize.md:210-248
@@ -28,7 +33,7 @@ import torch
 from consensus_specs_tpu_torch._device import upload
 from consensus_specs_tpu_torch.ssz.node import BranchNode, Node, ZERO_HASHES
 
-from .sha256 import sha256_block64, to_int32_bits
+from .sha256 import launch_u64_list_root, sha256_block64, to_int32_bits
 
 _MASK = 0xFFFFFFFF
 
@@ -40,21 +45,56 @@ def _byteswap32(x: torch.Tensor) -> torch.Tensor:
             | ((x << 8) & 0x00FF0000) | ((x << 24) & 0xFF000000))
 
 
+def _u64_halves(values: torch.Tensor) -> tuple:
+    """int64 tensor of raw 64-bit patterns -> (lo, hi) 32-bit halves as
+    int64 tensors in [0, 2^32)."""
+    return values & _MASK, (values >> 32) & _MASK
+
+
+def _chunk_words(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Packed uint64 halves -> [n_chunks, 8] int32 big-endian chunk words.
+
+    Per value the LE bytes are lo,hi; as BE words that is byteswap(lo),
+    byteswap(hi); 4 values -> 8 words -> one 32-byte chunk."""
+    words = torch.stack([_byteswap32(lo), _byteswap32(hi)], dim=1).reshape(-1, 8)
+    return to_int32_bits(words)
+
+
 def _reduce_to_root(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Full merkle reduction of a packed uint64 leaf array, on its device.
 
     ``lo``/``hi`` are the 32-bit halves of the (LE) uint64 values as int64
     tensors in [0, 2^32), length a multiple of 4 and a power of two in
     chunks.  Returns the [8] int32 (big-endian word bit patterns) root of
-    the 2^k-chunk subtree.
+    the 2^k-chunk subtree.  The plain version of K2, compressing one level
+    per call (K1 on a CUDA tensor).
     """
-    # chunk words: per value the LE bytes are lo,hi; as BE words that is
-    # byteswap(lo), byteswap(hi); 4 values -> 8 words -> one 32-byte chunk
-    words = torch.stack([_byteswap32(lo), _byteswap32(hi)], dim=1).reshape(-1, 8)
-    level = to_int32_bits(words)
+    level = _chunk_words(lo, hi)
     while level.shape[0] > 1:
         level = sha256_block64(level.reshape(level.shape[0] // 2, 16))
     return level[0]
+
+
+def packed_u64_root(values: torch.Tensor) -> torch.Tensor:
+    """Merkle root of a packed uint64 list: a contiguous, 16-byte aligned
+    int64 tensor of 4 * 2^k values (raw LE 64-bit patterns) -> [8] int32
+    (big-endian word bit patterns) root of the 2^k-chunk subtree; one chunk
+    is its own root.  CUDA launches K2; the CPU runs ``_reduce_to_root``."""
+    if values.dtype != torch.int64:
+        raise TypeError(f"packed_u64_root takes int64 values, got {values.dtype}")
+    if values.dim() != 1 or not values.is_contiguous():
+        raise ValueError("packed_u64_root takes a contiguous 1-d tensor")
+    n_chunks, rest = divmod(values.shape[0], 4)
+    if rest or n_chunks == 0 or n_chunks & (n_chunks - 1):
+        raise ValueError(f"packed_u64_root takes 4 * 2^k values, got "
+                         f"{values.shape[0]}")
+    if values.data_ptr() % 16:
+        raise ValueError("packed_u64_root needs a 16-byte aligned tensor")
+    if values.device.type == "cuda":
+        return launch_u64_list_root(values)
+    if values.device.type == "cpu":
+        return _reduce_to_root(*_u64_halves(values))
+    raise ValueError(f"packed_u64_root runs on cuda or cpu, not {values.device}")
 
 
 def _add_u64(lo, hi, dlo, dhi):
@@ -87,9 +127,7 @@ def _fused_epoch_balances(balances, eff, eligible, source_part, target_part,
     new_bal = torch.where(penalties > increased, 0, increased - penalties)
     # padded lanes carry balance 0 and zero deltas, so the zero-padded
     # chunk tail the SSZ merkleization demands is preserved
-    lo = new_bal & _MASK
-    hi = new_bal >> 32
-    return new_bal, _reduce_to_root(lo, hi)
+    return new_bal, packed_u64_root(new_bal)
 
 
 def fused_epoch_balance_update(inp, balances: np.ndarray, device,

@@ -13,10 +13,13 @@ design are noted in the source).
 
 ``sha256_block64`` is the one entry: on a CUDA tensor it launches K1 (or
 raises), on a CPU tensor it runs ``sha256_block64_plain``, the plain torch
-version of the same function.  Words cross the kernel boundary as
-``torch.int32`` tensors holding uint32 bit patterns; the plain version
-computes on int64 masked to 32 bits, because torch on the CPU has no shift
-or add for uint32.  The conversions between the two are exact
+version of the same function.  The same library holds K2
+(``csrc/sha256_tree.cu``), the merkle root of a packed uint64 list in one
+launch up to 512 chunks and two up to 2^18; ``launch_u64_list_root``
+binds it, and ``ops/merkle_resident.packed_u64_root`` is its entry.
+Words cross the kernel boundary as ``torch.int32`` tensors holding uint32
+bit patterns; the plain version computes on int64 masked to 32 bits,
+because torch on the CPU has no shift or add for uint32.  The conversions between the two are exact
 (``to_int32_bits`` / ``from_int32_bits``).
 
 Registered as the ``"torch"`` SSZ hashing backend:
@@ -67,9 +70,10 @@ _MASK = 0xFFFFFFFF
 OPS_PER_MESSAGE = 2 * 64 * 14 + 48 * 10 + 16
 BYTES_PER_MESSAGE = 96
 
-# K1 launches, counted by the wrapper where it launches the kernel and
-# nowhere else (a run shows the main path went through the kernel)
-counts = {"sha256_block64": 0}
+# Kernel launches, counted by the wrappers where they launch the kernels
+# and nowhere else (a run shows the main path went through them): K1, and
+# K2's passes (one or two a root at the main path's sizes)
+counts = {"sha256_block64": 0, "u64_list_root": 0}
 
 
 def reset_counts() -> None:
@@ -138,10 +142,16 @@ def sha256_block64_plain(words: torch.Tensor) -> torch.Tensor:
     return torch.stack(_compress(mid, _K_PAD), dim=1)
 
 
-# -- K1: the CUDA kernel --------------------------------------------------------
+# -- K1 and K2: the CUDA kernels ------------------------------------------------
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc", "sha256.cu")
+_CSRC_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+# compiled into one library by one nvcc call
+_CU_SOURCES = tuple(os.path.join(_CSRC_DIR, name)
+                    for name in ("sha256.cu", "sha256_tree.cu"))
+# everything the library is built from, the shared header included: the
+# build digest covers all of it, so an edited header rebuilds
+SOURCES = _CU_SOURCES + (os.path.join(_CSRC_DIR, "sha256_core.cuh"),)
 _NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _lib = None
@@ -151,19 +161,20 @@ def _nvcc() -> str:
     local = "/usr/local/cuda/bin/nvcc"
     found = shutil.which("nvcc") or (local if os.path.exists(local) else None)
     if found is None:
-        raise RuntimeError("nvcc not found: K1 builds only where the CUDA "
-                           "toolkit is installed")
+        raise RuntimeError("nvcc not found: the SHA-256 kernels build only "
+                           "where the CUDA toolkit is installed")
     return found
 
 
 def build_kernel() -> str:
-    """Compile K1 with nvcc for sm_90a into the build directory (once per
-    source digest) and return the library's path.  The compiler's report
-    (registers, spills) is kept beside it as ``<library>.log``."""
+    """Compile K1 and K2 with one nvcc call for sm_90a into the build
+    directory (once per source digest) and return the library's path.  The
+    compiler's report (registers, spills) is kept beside it as
+    ``<library>.log``."""
     nvcc = _nvcc()
     return _build.build_shared(
-        "sha256", [_CSRC],
-        lambda out: [nvcc, *_NVCC_FLAGS, _CSRC, "-o", out],
+        "sha256", SOURCES,
+        lambda out: [nvcc, *_NVCC_FLAGS, *_CU_SOURCES, "-o", out],
         flags=_NVCC_FLAGS)
 
 
@@ -171,10 +182,13 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build_kernel())
-        fn = lib.sha256_block64_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.sha256_block64_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        lib.sha256_block64_launch.restype = ctypes.c_int
+        lib.u64_list_root_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p]
+        lib.u64_list_root_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -196,6 +210,40 @@ def _launch_k1(words: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"K1 launch failed with CUDA error {rc}")
     counts["sha256_block64"] += 1
     return out
+
+
+K2_LEAVES_PER_CTA = 512  # kLeavesPerCta in csrc/sha256_tree.cu
+
+
+def k2_plan(n_chunks: int) -> tuple:
+    """(passes, scratch digests) of K2 for a 2^k-chunk tree, as its
+    launcher runs it: each pass reduces 512 leaves a CTA, and every pass
+    but the last writes its CTA roots to scratch."""
+    passes, scratch, n = 1, 0, n_chunks
+    while n > K2_LEAVES_PER_CTA:
+        n //= K2_LEAVES_PER_CTA
+        passes += 1
+        scratch += n
+    return passes, scratch
+
+
+def launch_u64_list_root(values: torch.Tensor) -> torch.Tensor:
+    """K2 on a contiguous, 16-byte aligned CUDA int64 tensor of 4 * 2^k
+    values (the caller has checked that) -> [8] int32 root words.  One
+    allocation holds the root and the passes' scratch."""
+    if values.device.index != torch.cuda.current_device():
+        with torch.cuda.device(values.device):
+            return launch_u64_list_root(values)
+    n_chunks = values.shape[0] // 4
+    passes, scratch = k2_plan(n_chunks)
+    buf = torch.empty(8 * (1 + scratch), dtype=torch.int32, device=values.device)
+    rc = _library().u64_list_root_launch(
+        values.data_ptr(), buf.data_ptr() + 32, buf.data_ptr(), n_chunks,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed with CUDA error {rc}")
+    counts["u64_list_root"] += passes
+    return buf[:8]
 
 
 def sha256_block64(words: torch.Tensor) -> torch.Tensor:

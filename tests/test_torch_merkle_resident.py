@@ -38,6 +38,44 @@ def test_reduce_to_root_matches_reference(n_chunks):
     assert np.array_equal(got.numpy().view(np.uint32), ref)
 
 
+def _u64_patterns(n_values, seed):
+    """Seeded uint64 values over the whole range, with the top bit set in
+    some and all-ones / sign-bit-only patterns at the ends."""
+    rng = np.random.default_rng(seed)
+    values = rng.integers(0, 2**64, n_values, dtype=np.uint64)
+    values[0] = 2**64 - 1
+    values[-1] = 2**63
+    return values
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 4, 64, 512, 1024, 4096])
+def test_packed_u64_root_matches_reference(n_chunks):
+    values = _u64_patterns(4 * n_chunks, seed=n_chunks)
+    halves = values.view("<u4").reshape(-1, 2)
+    ref = np.asarray(ref_mr._jit_reduce(jnp.asarray(halves[:, 0].copy()),
+                                        jnp.asarray(halves[:, 1].copy())))
+    got = merkle_resident.packed_u64_root(torch.from_numpy(values.view(np.int64)))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (8,)
+    assert np.array_equal(got.numpy().view(np.uint32), ref)
+    port = merkle_resident._reduce_to_root(
+        torch.as_tensor(halves[:, 0].astype(np.int64)),
+        torch.as_tensor(halves[:, 1].astype(np.int64)))
+    assert torch.equal(got, port)
+
+
+@pytest.mark.parametrize("values,error", [
+    (torch.zeros(8, dtype=torch.int32), TypeError),          # dtype
+    (torch.zeros((16, 2), dtype=torch.int64).t()[0], ValueError),  # strided
+    (torch.zeros(6, dtype=torch.int64), ValueError),         # not 4 * k
+    (torch.zeros(12, dtype=torch.int64), ValueError),        # 3 chunks
+    (torch.zeros(0, dtype=torch.int64), ValueError),         # no chunk
+    (torch.zeros(9, dtype=torch.int64)[1:], ValueError),     # 8-byte offset
+])
+def test_packed_u64_root_refuses_bad_inputs(values, error):
+    with pytest.raises(error):
+        merkle_resident.packed_u64_root(values)
+
+
 def test_add_u64_matches_reference():
     rng = np.random.default_rng(5)
     lo, hi, dlo, dhi = (rng.integers(0, 2**32, 4096, dtype=np.uint64)
@@ -96,3 +134,28 @@ def test_resident_device_gates_on_size_only():
                                            "cpu") is None
     assert merkle_resident.resident_device(merkle_resident.RESIDENT_MIN,
                                            "cpu") == torch.device("cpu")
+
+
+# -- K2 on the card -----------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: K2 is a CUDA kernel with no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunks", [1, 2, 512, 1024, 1 << 17])
+def test_k2_matches_plain(cuda_device, n_chunks):
+    from consensus_specs_tpu_torch.ops import sha256
+
+    values = _u64_patterns(4 * n_chunks, seed=n_chunks)
+    dev = torch.from_numpy(values.view(np.int64)).to(cuda_device)
+    before = sha256.counts["u64_list_root"]
+    got = merkle_resident.packed_u64_root(dev)
+    torch.cuda.synchronize()
+    assert sha256.counts["u64_list_root"] > before
+    plain = merkle_resident.packed_u64_root(dev.cpu())
+    assert torch.equal(got.cpu(), plain)

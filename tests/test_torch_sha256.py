@@ -7,6 +7,8 @@ digests are integers.  The CUDA kernel K1 is held against both on a GPU
 (``cuda`` marker; skips here without one).
 """
 import hashlib
+import os
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ import torch
 from consensus_specs_tpu.ops import sha256_jax
 from consensus_specs_tpu.ssz.types import List as RefList
 from consensus_specs_tpu.ssz.types import uint64 as ref_uint64
+from consensus_specs_tpu_torch import _build
 from consensus_specs_tpu_torch.ops import sha256
 from consensus_specs_tpu_torch.ssz import hashing
 from consensus_specs_tpu_torch.ssz.types import List, uint64
@@ -75,6 +78,31 @@ def test_wrapper_refuses_bad_inputs():
         sha256.sha256_block64(torch.zeros((2, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
         sha256.sha256_block64(torch.zeros((16, 2), dtype=torch.int32).t())
+
+
+@pytest.mark.parametrize("edited", range(len(sha256.SOURCES)))
+def test_build_digest_covers_every_source(tmp_path, edited):
+    """The library is named by a digest of all its sources, the shared
+    header among them, so editing any one of them rebuilds it."""
+    names = [os.path.basename(p) for p in sha256.SOURCES]
+    assert "sha256_core.cuh" in names
+    copies = []
+    for src in sha256.SOURCES:
+        copy = tmp_path / os.path.basename(src)
+        copy.write_bytes(pathlib.Path(src).read_bytes())
+        copies.append(str(copy))
+    before = _build.source_digest(copies, sha256._NVCC_FLAGS)
+    with open(copies[edited], "ab") as f:
+        f.write(b"\n// edited\n")
+    assert _build.source_digest(copies, sha256._NVCC_FLAGS) != before
+
+
+@pytest.mark.parametrize("n_chunks,plan", [
+    (1, (1, 0)), (512, (1, 0)), (1024, (2, 2)), (1 << 17, (2, 256)),
+    (1 << 18, (2, 512)), (1 << 19, (3, 1026)),
+])
+def test_k2_plan_counts_passes_and_scratch(n_chunks, plan):
+    assert sha256.k2_plan(n_chunks) == plan
 
 
 @pytest.mark.parametrize("min_batch", [None, 1])
