@@ -12,12 +12,12 @@ seconds:
 2. K1 against its plain torch version on the card, bit for bit, at
    N in {1, 129, 2^20} and at every level of the main path's balances
    reduction, and against hashlib on a sample; times both.
-2b. K2 against its plain torch version and the PR-1 route (torch packing
-   plus one K1 launch a level) at every power of two from 1 to 2^17
-   chunks and on the main path's balances; times K2 and the PR-1 route in
-   turns at the main path's shape, with kernel-only times from
-   ``torch.profiler`` where it sees the card, the bound and the tree's
-   dependency floor.
+2b. K2 against its plain torch version and the per-level route (torch
+   packing plus one K1 launch a level) at every power of two from 1 to 2^19
+   chunks (one, two and three passes) and on the main path's balances;
+   times K2 and the per-level route in turns at the main path's shape, with
+   kernel-only times from ``torch.profiler`` where it sees the card, the
+   bound, and a model of the tree's dependency chain.
 3. the main path: one mainnet-preset phase0 epoch at 400,000 validators
    with BLS on — 32 signed blocks (3,904 aggregate attestations) through
    ``spec.state_transition`` on a CUDA-built spec, the last of which
@@ -26,11 +26,14 @@ seconds:
    replayed from its serialized pre-state on a ``device="cpu"`` spec,
    must give the same post-state root.
 4. K1 as the SSZ layer hasher: a freshly decoded copy of the post-state
-   hashed under the ``"torch"`` backend equals its hashlib root.
+   hashed under the ``"torch"`` backend equals its hashlib root; then the
+   inputs of those K1 launches are held against the plain version and
+   timed, K1's path shapes for its kernels entry.
 
 Every comparison is exact (tolerance 0): digests and roots are integers
-and bytes.  Then one JSON line per kernel (launches on the path that
-drives it, error against the plain version, times, the bound), the
+and bytes.  Then one JSON line of the kernels (launches on the path that
+drives each, error against the plain version, times on that path's
+shapes, the bound), the
 ``nvidia-smi`` line, and last the device line.  Any failed phase raises:
 the exit code is non-zero and no result line is printed.  Without CUDA it
 fails before any phase.
@@ -57,10 +60,12 @@ PEAK_INT32_OPS_PER_S = 33.5e12
 # the main path's registry size (the scale BASELINE.json states)
 N_VALIDATORS = 400_000
 
-# Issue cycles of one warp instruction on an SM sub-partition's 16-lane
-# integer pipe (64 int32 lanes an SM): a message hashed alone on its warp
-# costs this times its operations, the floor of each dependent tree level
-# (csrc/sha256_tree.cu)
+# A model, not a bound: issue cycles of one warp instruction on an SM
+# sub-partition's 16-lane integer pipe (64 int32 lanes an SM), so that a
+# message hashed alone on its warp costs this times its operations on each
+# dependent tree level (csrc/sha256_tree.cu).  Chosen to fit the measured
+# time of one level in one warp; printed beside K2's time, never in the
+# kernels line
 INT_ISSUE_CYCLES = 2
 
 
@@ -133,6 +138,25 @@ def profiled_kernel_ms(fn, calls: int = 10):
                             evt.count / calls)
     total = sum(ms for ms, _ in kernels.values())
     return (kernels, total) if total > 0 else None
+
+
+def profiler_sees_device() -> bool:
+    """Whether ``torch.profiler`` records device time here (it may not in a
+    sandbox); only the profiler's own failure is caught."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1024, device="cuda")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            x.add_(1)
+            torch.cuda.synchronize()
+        seen = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    except RuntimeError as exc:
+        print(f"torch.profiler failed: {exc}", flush=True)
+        return False
+    return seen > 0
 
 
 def kernel_ms_of(profiled, fragment: str):
@@ -220,8 +244,8 @@ def _leaf_words(values: torch.Tensor) -> torch.Tensor:
     return merkle_resident._chunk_words(*merkle_resident._u64_halves(values))
 
 
-def _pr1_route(values: torch.Tensor) -> torch.Tensor:
-    """The reduction as PR 1 ran it on the main path: torch packing ops,
+def _per_level_route(values: torch.Tensor) -> torch.Tensor:
+    """The reduction as the main path ran it before K2: torch packing ops,
     then one K1 launch a level (plus a mask of the high halves, so that
     values with the top bit set are packed right)."""
     from consensus_specs_tpu_torch.ops import merkle_resident
@@ -283,11 +307,9 @@ def phase_k1(n_validators: int, seed: int) -> dict:
           f"messages in {leaves.shape[0].bit_length() - 1} launches): K1 "
           f"{k1_path:.4f} ms, plain {plain_path:.3f} ms, bound "
           f"{bound_path:.5f} ms ({by_path})", flush=True)
-    return {"max_abs_err": max_err, "ms": k1_path, "plain_ms": plain_path,
-            "bound_ms": bound_path, "bound_by": by_path,
-            "messages": n_messages,
-            "ms_2p20": k1_big, "plain_ms_2p20": plain_big,
-            "bound_ms_2p20": bound_big}
+    # these shapes are off K1's path since K2 took the reduction; its
+    # kernels entry is timed on the SSZ hasher's launches (phase 4)
+    return {"max_abs_err": max_err}
 
 
 # -- phase 2b ---------------------------------------------------------------
@@ -305,7 +327,7 @@ def phase_k2(n_validators: int, seed: int) -> dict:
 
     rng = np.random.default_rng(seed + 1)
     max_err = 0
-    for k in range(18):
+    for k in range(20):
         host = rng.integers(0, 2**64, 4 << k, dtype=np.uint64)
         host[0] = 2**64 - 1  # top bits set
         host[-1] = 2**63
@@ -314,36 +336,37 @@ def phase_k2(n_validators: int, seed: int) -> dict:
         got = merkle_resident.packed_u64_root(values)
         passes = sha256.counts["u64_list_root"] - before
         plain = _k2_plain(values)
-        route = _pr1_route(values)
+        route = _per_level_route(values)
         torch.cuda.synchronize()
         err = max(_word_err(got, plain), _word_err(got, route))
         max_err = max(max_err, err)
         if err:
-            raise AssertionError(f"K2 != plain / PR-1 route at 2^{k} chunks: "
-                                 f"max |diff| {err}")
+            raise AssertionError(f"K2 != plain / per-level route at 2^{k} "
+                                 f"chunks: max |diff| {err}")
         if passes != sha256.k2_plan(1 << k)[0]:
-            raise AssertionError(f"K2 counted {passes} passes at 2^{k} chunks")
-    print("K2 == plain == PR-1 route at 2^0 .. 2^17 chunks", flush=True)
+            raise AssertionError(f"K2 ran {passes} passes at 2^{k} chunks")
+    print("K2 == plain == per-level route at 2^0 .. 2^19 chunks (1 to 3 "
+          "passes, as the launcher reported them)", flush=True)
 
     values = _balance_values(n_validators, seed)
     n_chunks = values.shape[0] // 4
     got = merkle_resident.packed_u64_root(values)
     plain = _k2_plain(values)
-    route = _pr1_route(values)
+    route = _per_level_route(values)
     torch.cuda.synchronize()
     err = max(_word_err(got, plain), _word_err(got, route))
     max_err = max(max_err, err)
     if err:
         raise AssertionError(f"K2 != plain on the main path's balances: {err}")
-    print(f"K2 == plain == PR-1 route on the main path's balances "
+    print(f"K2 == plain == per-level route on the main path's balances "
           f"({n_chunks} chunks)", flush=True)
 
-    # in turns: PR-1 route, K2, K2, PR-1 route
+    # in turns: per-level route, K2, K2, per-level route
     k2 = lambda: merkle_resident.packed_u64_root(values)  # noqa: E731
-    route_a = cuda_ms(lambda: _pr1_route(values))
+    route_a = cuda_ms(lambda: _per_level_route(values))
     k2_a = cuda_ms(k2)
     k2_b = cuda_ms(k2)
-    route_b = cuda_ms(lambda: _pr1_route(values))
+    route_b = cuda_ms(lambda: _per_level_route(values))
     plain_ms = cuda_ms(lambda: _k2_plain(values), iters=3, warmup=1)
     k2_ms = (k2_a + k2_b) / 2
     route_ms = (route_a + route_b) / 2
@@ -356,57 +379,48 @@ def phase_k2(n_validators: int, seed: int) -> dict:
                        else (bytes_ms, "bytes"))
     clock_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     level_cycles = sha256.OPS_PER_MESSAGE * INT_ISSUE_CYCLES
-    dep_floor_ms = levels * level_cycles / (clock_mhz * 1e6) * 1e3
+    dep_model_ms = levels * level_cycles / (clock_mhz * 1e6) * 1e3
     print(f"main-path root ({n_chunks} chunks, {n_messages} messages, "
           f"{levels} levels): K2 {k2_a:.5f} / {k2_b:.5f} ms "
-          f"({sha256.k2_plan(n_chunks)[0]} launches a call), PR-1 route "
+          f"({sha256.k2_plan(n_chunks)[0]} launches a call), per-level route "
           f"{route_a:.5f} / {route_b:.5f} ms (torch packing + {levels} K1 "
           f"launches), plain {plain_ms:.3f} ms; bound {bound:.5f} ms "
           f"({bound_by}; operations {ops_ms:.5f}, bytes {bytes_ms:.5f}), "
-          f"dependency floor {dep_floor_ms:.5f} ms ({levels} levels x "
-          f"{level_cycles} issue cycles at {clock_mhz:.0f} MHz)", flush=True)
+          f"dependency model (not a bound) {dep_model_ms:.5f} ms ({levels} "
+          f"levels x {level_cycles} issue cycles at {clock_mhz:.0f} MHz)",
+          flush=True)
 
     # kernel-only device times, where the profiler sees the card
-    kernel = {"k2_kernel_ms": None, "route_k1_kernel_ms": None,
-              "route_device_ms": None, "level_us": None}
-    try:
-        prof_k2 = profiled_kernel_ms(k2)
-        prof_route = profiled_kernel_ms(lambda: _pr1_route(values))
-        tiny = {}
-        for k in (1, 5):
-            v = torch.zeros(4 << k, dtype=torch.int64, device="cuda")
-            tiny[k] = profiled_kernel_ms(lambda: merkle_resident.packed_u64_root(v))
-    except Exception as exc:  # the profiler is a report here, not a check
-        print(f"kernel-only times: not measured ({type(exc).__name__}: {exc})",
-              flush=True)
-        prof_k2 = prof_route = None
-        tiny = {}
-    k2_kernel = kernel_ms_of(prof_k2, "tree_reduce_kernel")
-    k1_kernel = kernel_ms_of(prof_route, "sha256_block64_kernel")
-    if k2_kernel is None or k1_kernel is None:
+    kernel_ms = None
+    if not profiler_sees_device():
         print("kernel-only times: not measured (no device time in the "
               "profiler)", flush=True)
     else:
-        kernel["k2_kernel_ms"] = k2_kernel[0]
-        kernel["route_k1_kernel_ms"] = k1_kernel[0]
-        kernel["route_device_ms"] = prof_route[1]
+        prof_route = profiled_kernel_ms(lambda: _per_level_route(values))
+        k2_kernel = kernel_ms_of(profiled_kernel_ms(k2), "tree_reduce_kernel")
+        k1_kernel = kernel_ms_of(prof_route, "sha256_block64_kernel")
+        if k2_kernel is None or k1_kernel is None:
+            raise AssertionError("the profiler saw device time but not K2's "
+                                 "or K1's kernel")
+        kernel_ms = k2_kernel[0]
         print(f"kernel-only (torch.profiler): K2 {k2_kernel[0]:.5f} ms in "
-              f"{k2_kernel[1]:g} launches a call; PR-1 route: K1 "
+              f"{k2_kernel[1]:g} launches a call; per-level route: K1 "
               f"{k1_kernel[0]:.5f} ms in {k1_kernel[1]:g} launches, all its "
               f"kernels {prof_route[1]:.5f} ms", flush=True)
-        small = {k: kernel_ms_of(tiny.get(k), "tree_reduce_kernel") for k in (1, 5)}
-        if all(v is not None for v in small.values()):
-            # 2 chunks: one message; 32 chunks: five levels in one warp
-            level_us = (small[5][0] - small[1][0]) / 4 * 1e3
-            kernel["level_us"] = level_us
-            print(f"one level in one warp (K2 at 32 chunks less K2 at 2, over "
-                  f"4 levels): {level_us:.3f} us, {level_us * clock_mhz:.0f} "
-                  f"cycles against {level_cycles} issue cycles", flush=True)
-    return {"max_abs_err": max_err, "ms": k2_ms, "ms_turns": [k2_a, k2_b],
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "dep_floor_ms": dep_floor_ms, "pr1_route_ms": route_ms,
-            "pr1_route_ms_turns": [route_a, route_b], "messages": n_messages,
-            **kernel}
+        small = {}
+        for k in (1, 5):
+            v = torch.zeros(4 << k, dtype=torch.int64, device="cuda")
+            small[k] = kernel_ms_of(profiled_kernel_ms(
+                lambda v=v: merkle_resident.packed_u64_root(v)),
+                "tree_reduce_kernel")[0]
+        # 2 chunks: one message; 32 chunks: five levels in one warp
+        level_us = (small[5] - small[1]) / 4 * 1e3
+        print(f"one level in one warp (K2 at 32 chunks less K2 at 2, over "
+              f"4 levels): {level_us:.3f} us, {level_us * clock_mhz:.0f} "
+              f"cycles against the model's {level_cycles}", flush=True)
+    return {"max_abs_err": max_err, "ms": k2_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "kernel_ms": kernel_ms,
+            "per_level_route_ms": route_ms}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -489,7 +503,16 @@ def phase_ssz_hasher(spec, post) -> dict:
     encoded = bytes(post.encode_bytes())
     fresh_torch = spec.BeaconState.decode_bytes(encoded)
     fresh_host = spec.BeaconState.decode_bytes(encoded)
+    # keep each K1 input of this path, to check and time K1 at its shapes
+    recorded = []
+    launch_k1 = sha256._launch_k1
+
+    def recording_launch(words):
+        recorded.append(words)
+        return launch_k1(words)
+
     sha256.reset_counts()
+    sha256._launch_k1 = recording_launch
     hashing.set_backend("torch", device="cuda")
     try:
         t0 = time.perf_counter()
@@ -498,6 +521,7 @@ def phase_ssz_hasher(spec, post) -> dict:
         t_torch = time.perf_counter() - t0
     finally:
         hashing.set_backend("hashlib")
+        sha256._launch_k1 = launch_k1
     launches = sha256.counts["sha256_block64"]
     t0 = time.perf_counter()
     root_host = bytes(fresh_host.hash_tree_root())
@@ -509,10 +533,29 @@ def phase_ssz_hasher(spec, post) -> dict:
         raise AssertionError("K1-backed SSZ root differs from hashlib's")
     if root_torch != bytes(post.hash_tree_root()):
         raise AssertionError("fresh decode root differs from the main path's")
-    if launches == 0:
-        raise AssertionError("the torch hashing backend did not launch K1")
-    return {"ssz_launches": launches, "ssz_torch_s": t_torch,
-            "ssz_hashlib_s": t_host}
+    if launches == 0 or len(recorded) != launches:
+        raise AssertionError(f"the torch hashing backend launched K1 "
+                             f"{launches} times, {len(recorded)} recorded")
+
+    # K1 at this path's shapes: each launch's input against the plain
+    # version, and the sums of the times of one call at each shape
+    max_err, k1_ms, plain_ms, messages = 0, 0.0, 0.0, 0
+    for words in recorded:
+        err = _word_err(sha256.sha256_block64(words), _plain_on(words))
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"K1 != plain at the SSZ hasher's N="
+                                 f"{words.shape[0]}: max |diff| {err}")
+        k1_ms += cuda_ms(lambda w=words: sha256.sha256_block64(w))
+        plain_ms += cuda_ms(lambda w=words: _plain_on(w), iters=3, warmup=1)
+        messages += words.shape[0]
+    bound, bound_by = bound_ms(messages, sha256)
+    print(f"K1 == plain at the SSZ hasher's {launches} launch shapes (N = "
+          f"{', '.join(str(w.shape[0]) for w in recorded)}; {messages} "
+          f"messages): K1 {k1_ms:.5f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound:.5f} ms ({bound_by}), summed over the launches", flush=True)
+    return {"launches": launches, "max_abs_err": max_err, "ms": k1_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
 def main(argv=None) -> int:
@@ -541,47 +584,31 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "consensus_specs_tpu_torch/csrc/sha256.cu",
         "replaces": "consensus_specs_tpu/ops/sha256_pallas.py:87",
-        # K1 left the main path (its root is K2's); it serves the SSZ
-        # hasher, so its launches are counted over that path (phase 4)
-        "launches": ssz["ssz_launches"],
-        "launches_counted_on": "ssz hasher (phase 4)",
-        "main_path_launches": main_path["k1_launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "kernel_ms": k2["route_k1_kernel_ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
+        # K1 left the main path (its root is K2's, and phase 3 checks that
+        # it launched K1 no time); it serves the SSZ hasher, so its
+        # launches, times and bound are those of that path (phase 4)
+        "launches": ssz["launches"],
+        "max_abs_err": max(k1["max_abs_err"], ssz["max_abs_err"]),
+        "ms": ssz["ms"],
+        "plain_ms": ssz["plain_ms"],
+        "bound_ms": ssz["bound_ms"],
+        "bound_by": ssz["bound_by"],
         "library_ms": None,
-        "messages": k1["messages"],
-        "ms_2p20": k1["ms_2p20"],
-        "plain_ms_2p20": k1["plain_ms_2p20"],
-        "bound_ms_2p20": k1["bound_ms_2p20"],
     }
     k2_entry = {
         "name": "u64_list_root",
         "route": "cuda",
         "source": "consensus_specs_tpu_torch/csrc/sha256_tree.cu",
         "replaces": "consensus_specs_tpu/ops/merkle_resident.py:44",
-        "replaces_function": "_reduce_to_root (its per-level compression: "
-                             "sha256_pallas.py:87 / sha256_jax.py)",
         "launches": main_path["k2_launches"],
-        "launches_counted_on": "main path (phase 3)",
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
-        "ms_turns": k2["ms_turns"],
-        "kernel_ms": k2["k2_kernel_ms"],
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
-        "dependency_floor_ms": k2["dep_floor_ms"],
         "library_ms": None,
-        "messages": k2["messages"],
-        "pr1_route_ms": k2["pr1_route_ms"],
-        "pr1_route_ms_turns": k2["pr1_route_ms_turns"],
-        "pr1_route_k1_kernel_ms": k2["route_k1_kernel_ms"],
-        "pr1_route_device_ms": k2["route_device_ms"],
-        "level_us": k2["level_us"],
+        "kernel_ms": k2["kernel_ms"],
+        "per_level_route_ms": k2["per_level_route_ms"],
     }
     print(json.dumps({"kernels": [k1_entry, k2_entry]}))
     print(smi)

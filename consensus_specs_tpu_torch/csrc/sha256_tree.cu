@@ -15,18 +15,21 @@
 // operations a second is 0.00895 ms; the bytes, 4 MiB read once and 32
 // written, take 0.00125 ms at 3.35 TB/s.  So operations bound it, and
 // Hopper's integer pipe (64 lanes an SM, half the float32 rate) puts the
-// attainable throughput near twice that.  A tree adds a second floor, the
-// dependency chain: each level needs the one below, and one message is two
-// compressions of 64 rounds that run strictly in order on one thread.  A
-// warp instruction takes two issue cycles on a sub-partition's 16-lane
-// integer pipe however few of its lanes are active, so a message hashed
-// alone costs about 2 x 2,288 = 4,576 cycles, and 17 levels at least
-// 78,000 cycles, 0.039 ms at 1.98 GHz: above the throughput bound, and
-// what sets this kernel's pace.  (On an H100 80GB HBM3 one level in one
-// warp measured ~5,500 cycles, the rest being the level's shared-memory
-// reads and barriers.)  Only the first three levels are wide enough to be
-// bound by throughput (level 1 alone is half the work, about 9 us with
-// every SM busy).
+// attainable throughput near twice that.  The kernel is judged against
+// that bound.  What keeps it from the bound is the tree's dependency chain:
+// each level needs the one below, and one message is two compressions of
+// 64 rounds that run strictly in order on one thread, so from level 4 on
+// most SMs idle while a few warps walk the chain.  A model of that chain,
+// not a bound: if a warp instruction takes two issue cycles on a
+// sub-partition's 16-lane integer pipe however few of its lanes are
+// active, a message hashed alone costs about 2 x 2,288 = 4,576 cycles and
+// 17 levels about 78,000 cycles, 0.039 ms at 1.98 GHz.  The model was
+// chosen after one level in one warp was measured on an H100 80GB HBM3
+// (~5,500 cycles, the rest being the level's shared-memory reads and
+// barriers); a model of dependent latency (~13.5 cycles a round) predicted
+// half that.  Only the first three levels are wide enough to be bound by
+// throughput (level 1 alone is half the work, about 9 us with every SM
+// busy).
 //
 // Design for this card:
 // 1. Packing happens in the load.  A chunk is 4 LE uint64 values, 32
@@ -52,7 +55,8 @@
 //    512 chunks is one launch.  A last-CTA-done tail (fence plus an atomic
 //    counter) would save the second launch's few microseconds but needs a
 //    counter that outlives the call and is shared by every stream; the
-//    second pass needs only the caller's scratch.
+//    second pass needs only the caller's scratch.  Above 2^18 chunks a
+//    third pass runs the same way.
 // The compression is sha256_core.cuh, shared with K1 (sha256.cu).
 #include "sha256_core.cuh"
 
@@ -117,30 +121,42 @@ tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
 }  // namespace
 
 // values: [4 * n_chunks] int64 (raw LE 64-bit patterns), out: [8] uint32,
-// scratch: room for the CTA roots of every pass but the last (the sum over
-// those passes of n / 512, n being the pass's leaf count), all 16-byte
-// aligned and contiguous on the current device.  n_chunks must be a power
-// of two.  Launches one pass per 512-fold reduction (one launch up to 512
-// chunks, two up to 2^18) on `stream`, returns cudaGetLastError() of the
-// first launch that fails (0 on success), and does not synchronise.
+// scratch: room for `scratch_digests` 32-byte digests, which must hold the
+// CTA roots of every pass but the last (the sum over those passes of
+// n / 512, n being the pass's leaf count), all 16-byte aligned and
+// contiguous on the current device.  n_chunks must be a power of two.
+// Launches one pass per 512-fold reduction (one launch up to 512 chunks,
+// two up to 2^18, three up to 2^27) on `stream`, stores the number of
+// passes it launched in *passes, returns cudaGetLastError() of the first
+// launch that fails (0 on success), and does not synchronise.  A pass whose
+// roots would not fit in scratch is not launched: the launcher returns
+// cudaErrorInvalidValue.
 extern "C" int u64_list_root_launch(const void* values, void* scratch,
-                                    void* out, long long n_chunks,
-                                    void* stream) {
+                                    long long scratch_digests, void* out,
+                                    long long n_chunks, void* stream,
+                                    int* passes) {
+  *passes = 0;
   if (n_chunks <= 0 || (n_chunks & (n_chunks - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   const uint4* src = (const uint4*)values;
   uint4* next = (uint4*)scratch;
+  long long scratch_left = scratch_digests;
   bool from_u64 = true;
   for (long long n = n_chunks;;) {
     const int per_cta = n < kLeavesPerCta ? (int)n : kLeavesPerCta;
     const long long blocks = n / per_cta;
+    if (blocks > 1) {
+      if (blocks > scratch_left) return (int)cudaErrorInvalidValue;
+      scratch_left -= blocks;
+    }
     uint4* dst = blocks == 1 ? (uint4*)out : next;
     tree_reduce_kernel<<<(unsigned int)blocks, kThreads, 0, s>>>(
         src, dst, per_cta, from_u64);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++*passes;
     if (blocks == 1) return 0;
     src = dst;
     next = dst + blocks * 2;

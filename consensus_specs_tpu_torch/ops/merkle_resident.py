@@ -13,8 +13,9 @@ skips the balances subtree entirely.
 
 The reduction is ``packed_u64_root``: on CUDA it launches K2
 (``csrc/sha256_tree.cu``), which packs the values into chunk words in its
-load and reduces the whole tree in one launch up to 512 chunks and two
-up to 2^18 (the main path's 400k balances are 2^17 chunks).
+load and reduces the whole tree in one launch up to 512 chunks, two up
+to 2^18 and three up to 2^27 (the main path's 400k balances are 2^17
+chunks).
 On the CPU it runs the plain version, ``_reduce_to_root``, the reference's
 shape: split, byteswap and pack in torch, then the SHA-256 compression once
 per tree level (``ops/sha256.sha256_block64``).  Words there are int64

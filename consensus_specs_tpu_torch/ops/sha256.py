@@ -15,8 +15,9 @@ design are noted in the source).
 raises), on a CPU tensor it runs ``sha256_block64_plain``, the plain torch
 version of the same function.  The same library holds K2
 (``csrc/sha256_tree.cu``), the merkle root of a packed uint64 list in one
-launch up to 512 chunks and two up to 2^18; ``launch_u64_list_root``
-binds it, and ``ops/merkle_resident.packed_u64_root`` is its entry.
+launch up to 512 chunks, two up to 2^18 and three up to 2^27;
+``launch_u64_list_root`` binds it, and
+``ops/merkle_resident.packed_u64_root`` is its entry.
 Words cross the kernel boundary as ``torch.int32`` tensors holding uint32
 bit patterns; the plain version computes on int64 masked to 32 bits,
 because torch on the CPU has no shift or add for uint32.  The conversions between the two are exact
@@ -186,8 +187,9 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         lib.sha256_block64_launch.restype = ctypes.c_int
         lib.u64_list_root_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int)]
         lib.u64_list_root_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -216,9 +218,10 @@ K2_LEAVES_PER_CTA = 512  # kLeavesPerCta in csrc/sha256_tree.cu
 
 
 def k2_plan(n_chunks: int) -> tuple:
-    """(passes, scratch digests) of K2 for a 2^k-chunk tree, as its
-    launcher runs it: each pass reduces 512 leaves a CTA, and every pass
-    but the last writes its CTA roots to scratch."""
+    """(passes, scratch digests) of K2 for a 2^k-chunk tree: each pass
+    reduces 512 leaves a CTA, and every pass but the last writes its CTA
+    roots to scratch.  Sizes the scratch; the launcher reports the passes
+    it ran, and the wrapper holds them to this plan."""
     passes, scratch, n = 1, 0, n_chunks
     while n > K2_LEAVES_PER_CTA:
         n //= K2_LEAVES_PER_CTA
@@ -230,19 +233,25 @@ def k2_plan(n_chunks: int) -> tuple:
 def launch_u64_list_root(values: torch.Tensor) -> torch.Tensor:
     """K2 on a contiguous, 16-byte aligned CUDA int64 tensor of 4 * 2^k
     values (the caller has checked that) -> [8] int32 root words.  One
-    allocation holds the root and the passes' scratch."""
+    allocation holds the root and the passes' scratch; the launcher refuses
+    a pass that would not fit in it."""
     if values.device.index != torch.cuda.current_device():
         with torch.cuda.device(values.device):
             return launch_u64_list_root(values)
     n_chunks = values.shape[0] // 4
-    passes, scratch = k2_plan(n_chunks)
+    planned, scratch = k2_plan(n_chunks)
     buf = torch.empty(8 * (1 + scratch), dtype=torch.int32, device=values.device)
+    passes = ctypes.c_int(0)
     rc = _library().u64_list_root_launch(
-        values.data_ptr(), buf.data_ptr() + 32, buf.data_ptr(), n_chunks,
-        torch.cuda.current_stream().cuda_stream)
+        values.data_ptr(), buf.data_ptr() + 32, scratch, buf.data_ptr(),
+        n_chunks, torch.cuda.current_stream().cuda_stream, ctypes.byref(passes))
+    counts["u64_list_root"] += passes.value
     if rc != 0:
-        raise RuntimeError(f"K2 launch failed with CUDA error {rc}")
-    counts["u64_list_root"] += passes
+        raise RuntimeError(f"K2 launch failed with CUDA error {rc} after "
+                           f"{passes.value} passes")
+    if passes.value != planned:
+        raise RuntimeError(f"K2 ran {passes.value} passes for {n_chunks} "
+                           f"chunks; its plan has {planned}")
     return buf[:8]
 
 

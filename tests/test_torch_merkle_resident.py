@@ -147,8 +147,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_chunks", [1, 2, 512, 1024, 1 << 17])
+@pytest.mark.parametrize("n_chunks", [1, 2, 512, 1024, 1 << 17, 1 << 19])
 def test_k2_matches_plain(cuda_device, n_chunks):
+    """One, two and three passes (2^19 chunks); the count is what the
+    launcher reports it ran."""
     from consensus_specs_tpu_torch.ops import sha256
 
     values = _u64_patterns(4 * n_chunks, seed=n_chunks)
@@ -156,6 +158,6 @@ def test_k2_matches_plain(cuda_device, n_chunks):
     before = sha256.counts["u64_list_root"]
     got = merkle_resident.packed_u64_root(dev)
     torch.cuda.synchronize()
-    assert sha256.counts["u64_list_root"] > before
+    assert sha256.counts["u64_list_root"] - before == sha256.k2_plan(n_chunks)[0]
     plain = merkle_resident.packed_u64_root(dev.cpu())
     assert torch.equal(got.cpu(), plain)
