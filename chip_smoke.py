@@ -25,6 +25,14 @@ seconds:
    launch K2 (one or two passes) and K1 not at all; the last block,
    replayed from its serialized pre-state on a ``device="cpu"`` spec,
    must give the same post-state root.
+3b. the engine at 400,000 validators: the same 32 blocks through the
+   batched block engine, ``stf.apply_signed_blocks``, on a copy of phase
+   3's pre-state whose balances were bulk-written again (unhashed, as a
+   state loader leaves them), from cold engine caches.  Every block must
+   take the fast path (none replayed, breaker closed, native BLS not
+   degraded), the root must equal phase 3's, the fused epoch update must
+   run once, K1 must not launch, and K2 must launch for the epoch and for
+   the resident per-slot root of the bulk-written balances.
 4. K1 as the SSZ layer hasher: a freshly decoded copy of the post-state
    hashed under the ``"torch"`` backend equals its hashlib root; then the
    inputs of those K1 launches are held against the plain version and
@@ -459,11 +467,12 @@ def phase_main_path(n_validators: int) -> dict:
         spec.state_transition(post, signed, True)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
+    t_path = t_end - t0
     k2_launches = sha256.counts["u64_list_root"]
     k1_launches = sha256.counts["sha256_block64"]
     fused = merkle_resident.stats["fused_epoch_updates"]
     root = bytes(post.hash_tree_root())
-    print(f"main path: {len(blocks)} blocks in {t_end - t0:.3f} s (last block, "
+    print(f"main path: {len(blocks)} blocks in {t_path:.3f} s (last block, "
           f"with the epoch transition: {t_end - t_last:.3f} s); fused epoch "
           f"updates {fused}, K2 launches {k2_launches}, K1 launches "
           f"{k1_launches}; root {root.hex()}", flush=True)
@@ -490,7 +499,89 @@ def phase_main_path(n_validators: int) -> dict:
     if cpu_root != root:
         raise AssertionError("cuda and cpu post-state roots differ")
     return {"k2_launches": k2_launches, "k1_launches": k1_launches,
-            "post": post, "spec": spec, "attestations": n_atts}
+            "post": post, "spec": spec, "attestations": n_atts,
+            "pre": state, "blocks": blocks, "root": root, "seconds": t_path}
+
+
+# -- phase 3b ---------------------------------------------------------------
+
+ENGINE_PHASES = ("slot_roots_s", "sig_verify_s", "attestation_apply_s",
+                 "other_s")
+
+
+def phase_engine(main_path: dict) -> dict:
+    from consensus_specs_tpu_torch import stf, tracing
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.ops import merkle_resident, sha256
+    from consensus_specs_tpu_torch.ssz import bulk
+    from consensus_specs_tpu_torch.stf import attestations, pipeline, verify
+
+    spec, blocks = main_path["spec"], main_path["blocks"]
+    state = main_path["pre"].copy()
+    # a state as a loader hands it over: the balances bulk-written, their
+    # subtree unhashed, so the first slot root takes the resident route
+    bulk.set_packed_uint64_from_numpy(
+        state.balances, bulk.packed_uint64_to_numpy(state.balances))
+    # cold engine caches: the engine pays for its own committee geometry,
+    # device buffers and signature checks
+    stf.reset_stats()
+    verify.reset_memo()
+    attestations.reset_caches()
+    bls.bls_active = True
+    tracing.enable()
+    tracing.reset()
+    merkle_resident.stats["fused_epoch_updates"] = 0
+    sha256.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        stf.apply_signed_blocks(spec, state, blocks, True)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counters = tracing.report()["counters"]
+    finally:
+        tracing.disable()
+    k2_launches = sha256.counts["u64_list_root"]
+    k1_launches = sha256.counts["sha256_block64"]
+    fused = merkle_resident.stats["fused_epoch_updates"]
+    resident = counters.get("stf.resident_slot_root", 0)
+    root = bytes(state.hash_tree_root())
+    phases = {k: stf.stats[k] for k in ENGINE_PHASES}
+    print(f"engine: {len(blocks)} blocks in {t_end - t0:.3f} s (literal path "
+          f"in phase 3: {main_path['seconds']:.3f} s); "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+          + f"; fast blocks {stf.stats['fast_blocks']}, replayed "
+          f"{stf.stats['replayed_blocks']} {stf.stats['replay_reasons']}, "
+          f"breaker trips {stf.stats['breaker_trips']}, native degraded "
+          f"{verify.stats['native_degraded']}; signature batches "
+          f"{verify.stats['batches']} ({verify.stats['entries']} entries, "
+          f"{verify.stats['memo_hits']} memo hits), pipeline overlap "
+          f"{pipeline.stats['overlap_s']:.3f} s, await "
+          f"{pipeline.stats['await_s']:.3f} s", flush=True)
+    print(f"engine: fused epoch updates {fused}, stf.resident_slot_root "
+          f"{resident}, K2 launches {k2_launches}, K1 launches {k1_launches}; "
+          f"root {root.hex()}", flush=True)
+    if (stf.stats["fast_blocks"] != len(blocks)
+            or stf.stats["replayed_blocks"] != 0
+            or stf.stats["replay_reasons"] != {}
+            or stf.stats["breaker_trips"] != 0
+            or verify.stats["native_degraded"] != 0):
+        raise AssertionError(f"the engine left its fast path: {stf.stats}")
+    if root != main_path["root"]:
+        raise AssertionError("engine root differs from the literal path's")
+    if fused != 1:
+        raise AssertionError(f"fused epoch update ran {fused} times, not once")
+    if k1_launches != 0:
+        raise AssertionError(f"the engine launched K1 {k1_launches} times")
+    if resident != 1:
+        raise AssertionError(f"the resident slot root fired {resident} times "
+                             "on bulk-written balances, not once")
+    n_chunks = 1 << ((len(state.balances) + 3) // 4 - 1).bit_length()
+    if k2_launches != sha256.k2_plan(n_chunks)[0] * (fused + resident):
+        raise AssertionError(f"K2 launched {k2_launches} times for {fused} "
+                             f"epoch and {resident} slot roots")
+    return {"k2_launches": k2_launches, "k1_launches": k1_launches,
+            "seconds": t_end - t0, **phases}
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -576,6 +667,8 @@ def main(argv=None) -> int:
         k2 = phase_k2(N_VALIDATORS, args.seed)
     with _phase(f"3 main path at {N_VALIDATORS} validators"):
         main_path = phase_main_path(N_VALIDATORS)
+    with _phase(f"3b engine at {N_VALIDATORS} validators"):
+        engine = phase_engine(main_path)
     with _phase("4 K1 as SSZ hasher"):
         ssz = phase_ssz_hasher(main_path["spec"], main_path["post"])
 
@@ -600,7 +693,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "consensus_specs_tpu_torch/csrc/sha256_tree.cu",
         "replaces": "consensus_specs_tpu/ops/merkle_resident.py:44",
-        "launches": main_path["k2_launches"],
+        # the engine's run (phase 3b): the fused epoch update and the
+        # resident per-slot root; the literal path's own count beside it
+        "launches": engine["k2_launches"],
+        "launches_literal_path": main_path["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -32,7 +32,14 @@ import numpy as np
 import torch
 
 from consensus_specs_tpu_torch._device import upload
-from consensus_specs_tpu_torch.ssz.node import BranchNode, Node, ZERO_HASHES
+from consensus_specs_tpu_torch.ssz.node import (
+    BranchNode,
+    LeafNode,
+    Node,
+    ZERO_HASHES,
+    merkle_root,
+    uint_to_leaf,
+)
 
 from .sha256 import launch_u64_list_root, sha256_block64, to_int32_bits
 
@@ -104,6 +111,107 @@ def _add_u64(lo, hi, dlo, dhi):
     new_lo = (lo + dlo) & _MASK
     carry = (new_lo < lo).to(torch.int64)
     return new_lo, (hi + dhi + carry) & _MASK
+
+
+def _join_u64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_u64_halves``: 32-bit halves -> int64 raw 64-bit
+    patterns.  The high half is read as a signed 32-bit value first, so
+    that no intermediate leaves the int64 range (torch's int64 overflow
+    is not relied on)."""
+    signed_hi = hi - ((hi >> 31) << 32)
+    return signed_hi * (1 << 32) + lo
+
+
+class ResidentPackedU64List:
+    """A packed ``List[uint64, limit]`` whose leaves live on a torch
+    device: one contiguous int64 tensor of raw 64-bit patterns, zero-padded
+    to 4 * 2^k values (a power of two in chunks), 16-byte aligned as
+    ``packed_u64_root`` needs.
+
+    ``upload()`` once; mutate with ``apply_add()`` (device ops);
+    ``root()`` runs the reduction on the device (K2 on CUDA) and reads
+    back 32 bytes.  ``root()`` is bit-identical to ``hash_tree_root`` of
+    the equivalent SSZ list."""
+
+    def __init__(self, limit: int, device):
+        assert limit % 4 == 0
+        self.limit = limit
+        self.chunk_limit = limit // 4
+        self.contents_depth = max((self.chunk_limit - 1).bit_length(), 0)
+        self.device = torch.device(device)
+        self.length = 0
+        self._values = None
+
+    # -- data movement -------------------------------------------------------
+
+    def upload(self, values) -> None:
+        """Bulk upload of the full value array: a numpy vector (read as
+        little-endian uint64) or an int64 tensor of raw 64-bit patterns."""
+        if isinstance(values, torch.Tensor):
+            if values.dtype != torch.int64:
+                raise TypeError(f"upload takes an int64 tensor, got {values.dtype}")
+            source = values.reshape(-1)
+        else:
+            host = np.ascontiguousarray(values, dtype="<u8").view(np.int64)
+            source = torch.from_numpy(host.copy())
+        self.length = source.shape[0]
+        n_chunks = max((self.length + 3) // 4, 1)
+        n_pad = 1 << (n_chunks - 1).bit_length()
+        padded = torch.zeros(n_pad * 4, dtype=torch.int64, device=self.device)
+        padded[: self.length] = source.to(self.device)
+        self._values = padded
+
+    def to_numpy(self) -> np.ndarray:
+        """Download the current values as uint64 (verification path)."""
+        return self._values[: self.length].cpu().numpy().view(np.uint64).copy()
+
+    # -- device-side mutation ------------------------------------------------
+
+    def apply_add(self, delta) -> None:
+        """Add ``delta`` (a scalar, a numpy vector or an int64 tensor; may
+        be negative) to every live element mod 2^64, on the device.  The
+        add runs on the 32-bit halves with an explicit carry, as the
+        reference's does, so the wraparound is exact."""
+        assert self._values is not None, "upload() before apply_add()"
+        full = torch.zeros_like(self._values)
+        if isinstance(delta, torch.Tensor):
+            # >> 32 must be an arithmetic shift so negative deltas carry a
+            # sign-extended high half; only int64 guarantees that here
+            if delta.dtype != torch.int64:
+                raise TypeError(f"tensor delta must be int64, got {delta.dtype}")
+            full[: self.length] = delta.to(self.device)
+        elif np.isscalar(delta):
+            full[: self.length] = int(np.array([delta], dtype=np.int64)[0])
+        else:
+            host = np.ascontiguousarray(np.asarray(delta, dtype=np.int64))
+            full[: self.length] = torch.from_numpy(host.copy()).to(self.device)
+        lo, hi = _add_u64(*_u64_halves(self._values), *_u64_halves(full))
+        self._values = _join_u64(lo, hi)
+
+    # -- roots ---------------------------------------------------------------
+
+    def contents_subtree_root(self) -> bytes:
+        """Root of the real-data subtree (padded to its power of two)."""
+        assert self._values is not None, "upload() before reading roots"
+        # host-sync: the resident tree's single root readback
+        words = packed_u64_root(self._values).cpu().numpy()
+        return words.view(np.uint32).astype(">u4").tobytes()
+
+    def as_backing_node(self) -> Node:
+        """The list's backing as a fixed-root node pair (contents, length)
+        — spliceable into a host-side container backing."""
+        import hashlib
+
+        node_root = self.contents_subtree_root()
+        level = (self._values.shape[0] // 4 - 1).bit_length()
+        for d in range(level, self.contents_depth):
+            node_root = hashlib.sha256(node_root + ZERO_HASHES[d]).digest()
+        return BranchNode(LeafNode(node_root), uint_to_leaf(self.length))
+
+    def root(self) -> bytes:
+        """Full SSZ ``hash_tree_root`` of the list (zero-hash fold up to
+        the virtual depth, then mix in the length)."""
+        return merkle_root(self.as_backing_node())
 
 
 RESIDENT_MIN = 16_384  # below this, host hashing of the subtree is trivial

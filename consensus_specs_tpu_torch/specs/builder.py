@@ -552,6 +552,9 @@ def build_spec(fork: str, preset_name: str, device=None) -> ModuleType:
     g.update(_base_env(preset, cfg))
     g["fork"] = fork
     g["preset_name"] = preset_name
+    # the block engine's per-slot roots (stf/slot_roots.py) read the
+    # device the spec was built for from here
+    g["device"] = device
     # dataclasses (and pickling) resolve classes through sys.modules
     sys.modules[mod_name] = mod
 

@@ -161,3 +161,98 @@ def test_k2_matches_plain(cuda_device, n_chunks):
     assert sha256.counts["u64_list_root"] - before == sha256.k2_plan(n_chunks)[0]
     plain = merkle_resident.packed_u64_root(dev.cpu())
     assert torch.equal(got.cpu(), plain)
+
+
+# -- ResidentPackedU64List ----------------------------------------------------
+
+
+def _near_wrap_patterns(n_values, seed):
+    """Seeded uint64 values with the ones next to 2^63 and 2^64 first."""
+    values = _u64_patterns(n_values, seed)
+    edges = np.array([2**64 - 1, 2**64 - 2, 2**63 - 1, 2**63, 0, 1],
+                     dtype=np.uint64)
+    values[: min(n_values, len(edges))] = edges[:n_values]
+    return values
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 16_384])
+def test_resident_list_matches_reference(n):
+    values = _near_wrap_patterns(n, seed=n)
+    ref = ref_mr.ResidentPackedU64List(LIMIT, device=jax.devices("cpu")[0])
+    ref.upload(values)
+    got = merkle_resident.ResidentPackedU64List(LIMIT, device="cpu")
+    got.upload(values)
+    assert got.length == n
+    assert np.array_equal(got.to_numpy(), ref.to_numpy())
+    assert got.contents_subtree_root() == ref.contents_subtree_root()
+    assert got.root() == ref.root() == _ssz_root(values)
+    # an int64 tensor of the same bit patterns is the same list
+    from_tensor = merkle_resident.ResidentPackedU64List(LIMIT, device="cpu")
+    from_tensor.upload(torch.from_numpy(values.view(np.int64)))
+    assert from_tensor.root() == ref.root()
+
+
+def _deltas(kind, n, rng):
+    """(reference delta, port delta, the delta as int64 numpy) of a kind."""
+    if kind == "scalar":
+        return 3, 3, np.full(n, 3, dtype=np.int64)
+    if kind == "negative_scalar":
+        return -5, -5, np.full(n, -5, dtype=np.int64)
+    vector = rng.integers(-2**63, 2**63, n, dtype=np.int64)
+    vector[: min(n, 4)] = np.array([-1, 1, -2**63, 2**63 - 1])[: min(n, 4)]
+    if kind == "vector":
+        return vector, vector.copy(), vector
+    return jnp.asarray(vector), torch.from_numpy(vector.copy()), vector
+
+
+@pytest.mark.parametrize("kind", ["scalar", "negative_scalar", "vector", "tensor"])
+@pytest.mark.parametrize("n", [5, 1024])
+def test_resident_list_apply_add_wraps_like_reference(kind, n):
+    """Adds are exact mod 2^64: against the reference's carry add and
+    numpy's uint64 wraparound, twice in a row."""
+    rng = np.random.default_rng(n)
+    values = _near_wrap_patterns(n, seed=n + 1)
+    ref = ref_mr.ResidentPackedU64List(LIMIT, device=jax.devices("cpu")[0])
+    ref.upload(values)
+    got = merkle_resident.ResidentPackedU64List(LIMIT, device="cpu")
+    got.upload(values)
+    want = values.copy()
+    for _ in range(2):
+        ref_delta, delta, as_int64 = _deltas(kind, n, rng)
+        ref.apply_add(ref_delta)
+        got.apply_add(delta)
+        want = want + as_int64.view(np.uint64)  # numpy wraps uint64 mod 2^64
+        assert np.array_equal(got.to_numpy(), want)
+        assert np.array_equal(got.to_numpy(), ref.to_numpy())
+        assert got.root() == ref.root()
+
+
+def test_resident_list_refuses_non_int64_tensors():
+    lst = merkle_resident.ResidentPackedU64List(LIMIT, device="cpu")
+    with pytest.raises(TypeError):
+        lst.upload(torch.zeros(4, dtype=torch.int32))
+    lst.upload(np.arange(4, dtype=np.uint64))
+    with pytest.raises(TypeError):
+        lst.apply_add(torch.ones(4, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16_384, 100_000])
+def test_resident_list_root_on_the_card(cuda_device, n):
+    """``contents_subtree_root`` on the card (K2) against the plain
+    version on the CPU, before and after a wrapping add."""
+    from consensus_specs_tpu_torch.ops import sha256
+
+    values = _near_wrap_patterns(n, seed=n)
+    on_card = merkle_resident.ResidentPackedU64List(LIMIT, device=cuda_device)
+    on_card.upload(values)
+    plain = merkle_resident.ResidentPackedU64List(LIMIT, device="cpu")
+    plain.upload(values)
+    n_chunks = on_card._values.shape[0] // 4
+    before = sha256.counts["u64_list_root"]
+    assert on_card.contents_subtree_root() == plain.contents_subtree_root()
+    assert sha256.counts["u64_list_root"] - before == sha256.k2_plan(n_chunks)[0]
+    on_card.apply_add(-7)
+    plain.apply_add(-7)
+    assert np.array_equal(on_card.to_numpy(), plain.to_numpy())
+    assert on_card.root() == plain.root()
