@@ -41,7 +41,12 @@ from consensus_specs_tpu_torch.ssz.node import (
     uint_to_leaf,
 )
 
-from .sha256 import launch_u64_list_root, sha256_block64, to_int32_bits
+from .sha256 import (
+    KernelError,
+    launch_u64_list_root,
+    sha256_block64,
+    to_int32_bits,
+)
 
 _MASK = 0xFFFFFFFF
 
@@ -103,6 +108,20 @@ def packed_u64_root(values: torch.Tensor) -> torch.Tensor:
     if values.device.type == "cpu":
         return _reduce_to_root(*_u64_halves(values))
     raise ValueError(f"packed_u64_root runs on cuda or cpu, not {values.device}")
+
+
+def _to_host(*tensors) -> list:
+    """Device results as host numpy arrays.  The copy waits for the kernels
+    that wrote them, so a fault of K2 that shows only on the device raises
+    here, as the ``KernelError`` of a failed launch does."""
+    try:
+        return [t.cpu().numpy() for t in tensors]
+    except RuntimeError as exc:
+        raise KernelError(f"reading a device result back failed: {exc}") from exc
+
+
+def _root_bytes(words: np.ndarray) -> bytes:
+    return words.view(np.uint32).astype(">u4").tobytes()
 
 
 def _add_u64(lo, hi, dlo, dhi):
@@ -194,8 +213,8 @@ class ResidentPackedU64List:
         """Root of the real-data subtree (padded to its power of two)."""
         assert self._values is not None, "upload() before reading roots"
         # host-sync: the resident tree's single root readback
-        words = packed_u64_root(self._values).cpu().numpy()
-        return words.view(np.uint32).astype(">u4").tobytes()
+        words, = _to_host(packed_u64_root(self._values))
+        return _root_bytes(words)
 
     def as_backing_node(self) -> Node:
         """The list's backing as a fixed-root node pair (contents, length)
@@ -271,8 +290,8 @@ def fused_epoch_balance_update(inp, balances: np.ndarray, device,
     stats["fused_epoch_updates"] += 1
     # host-sync: fused-update outputs (new balances + root) pulled once per
     # epoch
-    return (new_bal[:n].cpu().numpy(),
-            root_words.cpu().numpy().view(np.uint32).astype(">u4").tobytes())
+    new_host, root_host = _to_host(new_bal[:n], root_words)
+    return new_host, _root_bytes(root_host)
 
 
 def memoize_packed_u64_contents_root(view, padded_root: bytes) -> None:

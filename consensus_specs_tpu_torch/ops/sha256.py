@@ -17,7 +17,10 @@ version of the same function.  The same library holds K2
 (``csrc/sha256_tree.cu``), the merkle root of a packed uint64 list in one
 launch up to 512 chunks, two up to 2^18 and three up to 2^27;
 ``launch_u64_list_root`` binds it, and
-``ops/merkle_resident.packed_u64_root`` is its entry.
+``ops/merkle_resident.packed_u64_root`` is its entry.  Every failure of
+the kernels (no compiler, a failed build or load, a launch error, a pass
+count off its plan) raises ``KernelError``, so that callers can tell it
+from the errors of their own logic and let it through.
 Words cross the kernel boundary as ``torch.int32`` tensors holding uint32
 bit patterns; the plain version computes on int64 masked to 32 bits,
 because torch on the CPU has no shift or add for uint32.  The conversions between the two are exact
@@ -80,6 +83,12 @@ counts = {"sha256_block64": 0, "u64_list_root": 0}
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+class KernelError(RuntimeError):
+    """K1 or K2 could not be built, loaded or launched, or failed on the
+    device.  Never a reason to take another path: it is raised to the
+    caller."""
 
 
 # -- exact int32 <-> uint32-in-int64 conversion ------------------------------
@@ -182,7 +191,11 @@ def build_kernel() -> str:
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_kernel())
+        try:
+            lib = ctypes.CDLL(build_kernel())
+        except (OSError, RuntimeError) as exc:
+            raise KernelError(f"the SHA-256 kernels are not available: "
+                              f"{exc}") from exc
         lib.sha256_block64_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         lib.sha256_block64_launch.restype = ctypes.c_int
@@ -209,7 +222,7 @@ def _launch_k1(words: torch.Tensor) -> torch.Tensor:
             ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             n, ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed with CUDA error {rc}")
+        raise KernelError(f"K1 launch failed with CUDA error {rc}")
     counts["sha256_block64"] += 1
     return out
 
@@ -247,10 +260,10 @@ def launch_u64_list_root(values: torch.Tensor) -> torch.Tensor:
         n_chunks, torch.cuda.current_stream().cuda_stream, ctypes.byref(passes))
     counts["u64_list_root"] += passes.value
     if rc != 0:
-        raise RuntimeError(f"K2 launch failed with CUDA error {rc} after "
+        raise KernelError(f"K2 launch failed with CUDA error {rc} after "
                            f"{passes.value} passes")
     if passes.value != planned:
-        raise RuntimeError(f"K2 ran {passes.value} passes for {n_chunks} "
+        raise KernelError(f"K2 ran {passes.value} passes for {n_chunks} "
                            f"chunks; its plan has {planned}")
     return buf[:8]
 

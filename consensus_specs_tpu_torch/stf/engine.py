@@ -29,14 +29,18 @@ literal ``spec.state_transition``, which raises the spec's exact exception
 type/message at the spec's exact point and leaves the state exactly as
 poisoned as the sequential path would have.  Valid blocks therefore land
 byte-identical post-states, and invalid blocks are indistinguishable from
-the spec path (pinned by tests/test_torch_stf_engine.py).
+the spec path (pinned by tests/test_torch_stf_engine.py).  The one
+exception is a failing kernel (``ops.sha256.KernelError``): the block's
+pre-state is restored and the error raised to the caller, with no replay
+and no breaker accounting, so a broken device path never hides behind the
+host path.
 
 Cross-block overlapped pipeline: with ``pipeline.ENABLED`` (the
 default), a multi-block call overlaps block N's native signature
 batch with the next block(s)' host phases — the batch is dispatched
 through ``stf/pipeline.py`` and its verdict awaited only after
-``pipeline.window_depth()`` successors' host work (default 2; the extra
-block of slack absorbs per-block jitter).  The rollback
+``_WINDOW_DEPTH`` successors' host work (2; the extra block of slack
+absorbs per-block jitter).  The rollback
 contract makes the speculation safe by construction: each block's cache
 transaction stays open (and its verified-triple commit deferred) until
 its verdict lands, so a failed verdict, a breaker trip, native
@@ -53,6 +57,7 @@ import sys
 import time
 
 from consensus_specs_tpu_torch import faults, telemetry, tracing
+from consensus_specs_tpu_torch.ops.sha256 import KernelError
 from consensus_specs_tpu_torch.telemetry import histogram, recorder, timeline
 
 from . import pipeline, slot_roots, staging, verify
@@ -80,6 +85,11 @@ FAST_FORKS = ("phase0",)
 # double the work exactly when the node is least healthy.
 BREAKER_THRESHOLD = 3
 BREAKER_PROBE_INTERVAL = 8
+
+# the speculation window: how many blocks may hold an outstanding verdict
+# while the next block's host phases run (in flight at once: these plus
+# the current block's batch)
+_WINDOW_DEPTH = 2
 
 _breaker = {"consecutive_errors": 0, "open": False, "since_skipped": 0}
 
@@ -213,7 +223,7 @@ def apply_signed_blocks(spec, state, signed_blocks, validate_result: bool = True
     joins the caller's block and must stay synchronous), blocks run
     through the speculative cross-block path; otherwise the serial
     one-block-at-a-time path.  Both land byte-identical results."""
-    if pipeline.enabled() and staging.current() is None:
+    if pipeline.ENABLED and staging.current() is None:
         return _apply_pipelined(spec, state, signed_blocks, validate_result)
     for signed_block in signed_blocks:
         _apply_one(spec, state, signed_block, validate_result)
@@ -271,6 +281,8 @@ def _apply_one(spec, state, signed_block, validate_result: bool) -> None:
         # the fast-path spans describe work that just rolled back: mark
         # the block's flow cancelled before the literal replay re-does it
         timeline.cancel_link(link)
+        if isinstance(exc, KernelError):
+            raise
         _replay_literal(spec, state, signed_block, validate_result, exc, rec)
 
 
@@ -561,19 +573,20 @@ def _unwind_pending(state, pend: _Speculation) -> None:
 
 def _apply_pipelined(spec, state, signed_blocks, validate_result: bool):
     """The overlapped engine loop: begin block i (host phases + async
-    dispatch), then settle the window down to ``pipeline.window_depth()``
+    dispatch), then settle the window down to ``_WINDOW_DEPTH``
     outstanding verdicts — so speculated blocks' native pairings run
-    concurrently with up to ``depth`` later blocks' host work (the extra
-    slack absorbs per-block jitter a one-deep window leaks as await
-    time).  Any failure drains LIFO — newer speculations unwound first,
+    concurrently with up to ``_WINDOW_DEPTH`` later blocks' host work
+    (the extra slack absorbs per-block jitter a one-deep window leaks as
+    await time).  Any failure drains LIFO — newer speculations unwound first,
     then the failing block restores its snapshot and replays literally —
     and the loop resumes at the block after the failure, so recovery
     re-runs everything whose host phases rode the dead state.  The
     pipeline always drains before returning (no verdict outlives a
-    call)."""
+    call).  A ``KernelError`` in a block's host phases settles the blocks
+    before it and is then raised, leaving the state after the last of
+    them, as the serial path does."""
     blocks = list(signed_blocks)
     window = []  # oldest-first _Speculations with verdicts outstanding
-    depth = pipeline.window_depth()
 
     def settle(target_len: int, drain_reason, rec: bool):
         """Settle the window (oldest first) down to ``target_len``.
@@ -668,6 +681,15 @@ def _apply_pipelined(spec, state, signed_blocks, validate_result: bool):
         try:
             cur = _begin_block(spec, state, signed_block, validate_result,
                                spec_keys, rec, link=link)
+        except KernelError:
+            # the partial current block is already unwound; its
+            # predecessors settle (a failed one rewinds the loop) before
+            # the error is raised
+            resume = settle(0, "kernel_error" if window else None, rec)
+            if resume is None:
+                raise
+            i = resume
+            continue
         except Exception as exc_begin:
             # the partial current block is already unwound; settle its
             # predecessors first (sequential order), then replay it
@@ -676,7 +698,7 @@ def _apply_pipelined(spec, state, signed_blocks, validate_result: bool):
         cur.index = i
         window.append(cur)
         i += 1
-        resume = settle(depth, None, rec)
+        resume = settle(_WINDOW_DEPTH, None, rec)
         if resume is not None:
             i = resume
     return state

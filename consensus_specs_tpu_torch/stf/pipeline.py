@@ -1,10 +1,11 @@
 """Cross-block overlapped signature verification.
 
 Port of ``consensus_specs_tpu/stf/pipeline.py``.  The reference's
-environment switches ``CSTPU_PIPELINE`` and ``CSTPU_PIPELINE_DEPTH`` are
-the module attributes ``ENABLED`` and ``DEPTH`` here (same defaults: on,
-depth 2).  Only the native pairing work of a batch runs on the dispatch
-worker; every torch device operation stays on the calling thread.
+environment switch ``CSTPU_PIPELINE`` is the module attribute ``ENABLED``
+here (on by default); its window depth is the engine's constant
+``_WINDOW_DEPTH`` (2, the reference's default), not a switch.  Only the
+native pairing work of a batch runs on the dispatch worker; every torch
+device operation stays on the calling thread.
 
 The serial engine strictly alternates host work and native work: block
 N's pairing batch settles on the (GIL-releasing, internally thread-
@@ -22,14 +23,14 @@ seconds disappear behind host seconds (``overlap_s``).
 Shape and bounds:
 
 * **one dispatch worker** — batches execute on a single daemon thread,
-  so the in-flight queue is bounded at ``window_depth() + 1`` (the
+  so the in-flight queue is bounded at the window's depth + 1 (the
   speculated blocks' batches plus the current block's, newer ones
   queuing behind the oldest) and every ``stf.verify`` counter keeps a
   single writer per key (no locks on the hot path).  The native call
   parallelizes internally; a second dispatch thread would only contend
-  the pool.  The window defaults to depth 2 — one extra block of host
+  the pool.  The window is two blocks deep — one extra block of host
   slack absorbs the per-block jitter a depth-1 window leaks as await
-  time (``DEPTH``).
+  time.
 * **speculation never leaks** — the engine holds each block's cache
   transaction open until its verdict lands (stf/staging.py), and the
   verified-triple memo commit stays deferred through the transaction,
@@ -58,9 +59,8 @@ from consensus_specs_tpu_torch.telemetry import timeline
 
 from . import verify
 
-# the pipeline gate and the speculation window's depth
+# the pipeline gate, read per call so tests can flip it
 ENABLED = True
-DEPTH = 2
 
 _SITE_DISPATCH = faults.site("stf.pipeline.dispatch")
 _SITE_DRAIN = faults.site("stf.pipeline.drain")
@@ -91,22 +91,6 @@ def reset_stats() -> None:
             stats[k] = {}
         else:
             stats[k] = 0.0 if isinstance(stats[k], float) else 0
-
-
-def enabled() -> bool:
-    """The pipeline gate: on by default, ``ENABLED = False`` opts out
-    (read per call so tests can flip it without re-importing)."""
-    return ENABLED
-
-
-def window_depth() -> int:
-    """How many blocks may hold an outstanding verdict at once (the
-    speculation window).  Depth 2 (the default) banks one extra block of
-    host work as slack, absorbing per-block jitter where batch and host
-    times cross over; depth 1 is the minimal overlap.  In-flight handles
-    are bounded at depth + 1 (the current block's dispatch joins
-    momentarily before the oldest verdict is awaited)."""
-    return DEPTH
 
 
 def _executor() -> ThreadPoolExecutor:
@@ -232,7 +216,7 @@ def _telemetry_provider() -> dict:
         "depth": len(_INFLIGHT),
         "overlap_ratio": (round(stats["overlap_s"] / total, 3)
                           if total > 0 else None),
-        "enabled": enabled(),
+        "enabled": ENABLED,
     }
 
 

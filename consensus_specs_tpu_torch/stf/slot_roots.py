@@ -13,9 +13,10 @@ subtree is reduced on the device the spec was built for (``spec.device``;
 K2 on CUDA, the plain reduction on the CPU) and the 32-byte root is
 memoized into the host backing (``memoize_packed_u64_contents_root``).
 
-Unlike the reference, a failure of the device reduction is not caught: it
-raises into the engine's rollback and literal replay, where it shows as a
-replayed block, instead of silently taking the host path.
+Unlike the reference, a failure of the device reduction is not caught.
+The kernel raises ``ops.sha256.KernelError``, which the engine lets
+through after restoring the block's pre-state: it neither replays the
+block on the host path nor counts it against the breaker.
 
 Differentially pinned to ``spec.process_slots`` by
 tests/test_torch_stf_engine.py.

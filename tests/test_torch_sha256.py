@@ -97,6 +97,21 @@ def test_build_digest_covers_every_source(tmp_path, edited):
     assert _build.source_digest(copies, sha256._NVCC_FLAGS) != before
 
 
+@pytest.mark.parametrize("failure", [OSError("build failed"),
+                                     RuntimeError("nvcc not found")])
+def test_unavailable_library_raises_kernel_error(monkeypatch, failure):
+    """A library that cannot be built or loaded raises ``KernelError``, the
+    one type callers let through, with the cause attached."""
+    def fail():
+        raise failure
+
+    monkeypatch.setattr(sha256, "_lib", None)
+    monkeypatch.setattr(sha256, "build_kernel", fail)
+    with pytest.raises(sha256.KernelError) as info:
+        sha256._library()
+    assert info.value.__cause__ is failure
+
+
 @pytest.mark.parametrize("n_chunks,plan", [
     (1, (1, 0)), (512, (1, 0)), (1024, (2, 2)), (1 << 17, (2, 256)),
     (1 << 18, (2, 512)), (1 << 19, (3, 1026)),

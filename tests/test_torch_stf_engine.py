@@ -17,6 +17,8 @@ breaker closed, the native BLS backend not degraded.
 * ``slot_roots.process_slots`` against ``spec.process_slots``, on the
   minimal state and on a 16,384-validator mainnet-preset state where the
   resident balances root fires;
+* a failing kernel (``KernelError``) is raised to the caller with the
+  block's pre-state restored, never replayed on the host path;
 * the 400,000-validator main path through the engine (``slow``).
 """
 import pytest
@@ -38,6 +40,7 @@ from consensus_specs_tpu.testing.helpers.state import next_epoch
 from consensus_specs_tpu_torch import scenario, stf, tracing
 from consensus_specs_tpu_torch.crypto import bls
 from consensus_specs_tpu_torch.ops import merkle_resident
+from consensus_specs_tpu_torch.ops.sha256 import KernelError
 from consensus_specs_tpu_torch.specs import get_spec
 from consensus_specs_tpu_torch.stf import attestations, pipeline, slot_roots, verify
 
@@ -155,9 +158,8 @@ def test_engine_matches_reference_engine_and_literal(bls_on, pipelined):
     stf.apply_signed_blocks(spec, whole, port_blocks, True)
     assert bytes(whole.hash_tree_root()) == bytes(literal_state.hash_tree_root())
     _assert_all_fast(len(blocks))
-    # in flight at once: the window's verdicts plus the current block's
-    assert pipeline.stats["depth_max"] == (pipeline.DEPTH + 1 if pipelined
-                                           else 0)
+    # in flight at once: the window's two verdicts plus the current block's
+    assert pipeline.stats["depth_max"] == (3 if pipelined else 0)
 
 
 def _capture(fn, *args):
@@ -241,11 +243,74 @@ def test_slot_roots_raise_on_a_failing_reduction(monkeypatch):
     state = scenario.build_state(spec, merkle_resident.RESIDENT_MIN)
 
     def broken(values):
-        raise RuntimeError("reduction failed")
+        raise KernelError("reduction failed")
 
     monkeypatch.setattr(merkle_resident, "packed_u64_root", broken)
-    with pytest.raises(RuntimeError, match="reduction failed"):
+    with pytest.raises(KernelError, match="reduction failed"):
         slot_roots.state_root(spec, state)
+
+
+def _assert_no_replay():
+    """A kernel error is not a fast-path miss: nothing replayed, nothing
+    counted against the breaker."""
+    assert stf.stats["replayed_blocks"] == 0, stf.stats["replay_reasons"]
+    assert stf.stats["replay_reasons"] == {}
+    assert stf.stats["fast_path_errors"] == 0
+    assert stf.stats["breaker_trips"] == 0
+    assert stf.stats["breaker_state"] == "closed"
+
+
+def test_engine_raises_a_failing_kernel(bls_on, pipelined, monkeypatch):
+    """K2 failing in the first block's slot root, on a 16,384-validator
+    state with bulk-written balances: the engine raises the error with the
+    pre-state restored, and replays nothing on the host path."""
+    spec = get_spec("phase0", "mainnet", device="cpu")
+    state = scenario.build_state(spec, merkle_resident.RESIDENT_MIN)
+    assert state.balances.get_backing().left._root is None
+    pre = bytes(state.encode_bytes())
+    block = spec.SignedBeaconBlock(
+        message=spec.BeaconBlock(slot=state.slot + 1))
+
+    def broken(values):
+        raise KernelError("K2 launch failed")
+
+    monkeypatch.setattr(merkle_resident, "packed_u64_root", broken)
+    _fresh_engines()
+    with pytest.raises(KernelError, match="K2 launch failed"):
+        stf.apply_signed_blocks(spec, state, [block], True)
+    _assert_no_replay()
+    assert stf.stats["fast_blocks"] == 0
+    assert bytes(state.encode_bytes()) == pre
+
+
+def test_kernel_error_mid_window_settles_the_blocks_before(
+        bls_on, pipelined, monkeypatch):
+    """A kernel error in block 2's slot processing, with blocks 0 and 1
+    still awaiting their verdicts when the pipeline is on: both commit, the
+    error is raised, and the state is the literal post-state of block 1."""
+    ref_spec, spec, pre, blocks = _corpus()
+    port_blocks = [_to_port(spec.SignedBeaconBlock, b) for b in blocks[:4]]
+    literal = _to_port(spec.BeaconState, pre)
+    for block in port_blocks[:2]:
+        spec.state_transition(literal, block, True)
+    failing_slot = port_blocks[2].message.slot
+    process_slots = slot_roots.process_slots
+
+    def failing(spec_, state_, slot):
+        if slot == failing_slot:
+            raise KernelError("K2 launch failed")
+        process_slots(spec_, state_, slot)
+
+    monkeypatch.setattr(slot_roots, "process_slots", failing)
+    _fresh_engines()
+    state = _to_port(spec.BeaconState, pre)
+    with pytest.raises(KernelError, match="K2 launch failed"):
+        stf.apply_signed_blocks(spec, state, port_blocks, True)
+    _assert_no_replay()
+    assert stf.stats["fast_blocks"] == 2
+    assert bytes(state.hash_tree_root()) == bytes(literal.hash_tree_root())
+    assert pipeline.stats["drain_reasons"] == (
+        {"kernel_error": 1} if pipelined else {})
 
 
 @pytest.mark.slow
