@@ -14,10 +14,12 @@ seconds:
    reduction, and against hashlib on a sample; times both.
 2b. K2 against its plain torch version and the per-level route (torch
    packing plus one K1 launch a level) at every power of two from 1 to 2^19
-   chunks (one, two and three passes) and on the main path's balances;
-   times K2 and the per-level route in turns at the main path's shape, with
-   kernel-only times from ``torch.profiler`` where it sees the card, the
-   bound, and a model of the tree's dependency chain.
+   chunks (one and two passes) and on the main path's balances; prints
+   K2's ptxas report and the SASS opcode counts of K1 and K2 by pipe
+   (``cuobjdump -sass``); times K2 and the per-level route in turns at the
+   main path's shape, with kernel-only times from ``torch.profiler`` where
+   it sees the card, one tree level in one warp, the bound, and two models
+   (not bounds) of the tree's dependency chain.
 3. the main path: one mainnet-preset phase0 epoch at 400,000 validators
    with BLS on — 32 signed blocks (3,904 aggregate attestations) through
    ``spec.state_transition`` on a CUDA-built spec, the last of which
@@ -68,13 +70,28 @@ PEAK_INT32_OPS_PER_S = 33.5e12
 # the main path's registry size (the scale BASELINE.json states)
 N_VALIDATORS = 400_000
 
-# A model, not a bound: issue cycles of one warp instruction on an SM
-# sub-partition's 16-lane integer pipe (64 int32 lanes an SM), so that a
-# message hashed alone on its warp costs this times its operations on each
-# dependent tree level (csrc/sha256_tree.cu).  Chosen to fit the measured
-# time of one level in one warp; printed beside K2's time, never in the
-# kernels line
+# Two models, not bounds, of K2's dependency chain (csrc/sha256_tree.cu),
+# printed beside its time and never in the kernels line.  The issue model:
+# a warp instruction takes two issue cycles on an SM sub-partition's
+# 16-lane ALU pipe (64 int32 lanes an SM), so a message hashed alone on its
+# warp costs at least twice its ALU-pipe instructions on each dependent
+# tree level (the count read from the SASS).  The chain floor: each of the
+# 128 rounds of a level waits for three dependent instructions (from e to
+# the next e: a rotate, the xor, an add) of about four cycles each.
 INT_ISSUE_CYCLES = 2
+CHAIN_OPS_PER_ROUND = 3
+DEPENDENT_LATENCY_CYCLES = 4
+ROUNDS_PER_MESSAGE = 128
+
+# SASS opcodes by the pipe that runs them (the rest: uniform datapath,
+# control, conversions), for the opcode counts of K1 and K2
+SASS_PIPES = {
+    "alu": ("SHF", "LOP3", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "MOV",
+            "IABS", "FLO", "POPC", "PLOP3", "P2R", "R2P"),
+    "fma": ("IMAD", "IMUL"),
+    "memory": ("LDS", "STS", "LDG", "STG", "LDC", "SHFL", "LD", "ST"),
+    "barrier": ("BAR",),
+}
 
 
 def _phase(name: str):
@@ -128,8 +145,9 @@ def nvidia_smi_line() -> str:
 
 def profiled_kernel_ms(fn, calls: int = 10):
     """Device time per call of ``fn()`` by kernel name, from
-    ``torch.profiler`` over ``calls`` calls: {name: (ms, launches)} and the
-    sum over all kernels, or None where the profiler saw no device time."""
+    ``torch.profiler`` over ``calls`` calls, each waited for, so that no
+    launch overlaps the call before it: {name: (ms, launches)} and the sum
+    over all kernels, or None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -137,7 +155,7 @@ def profiled_kernel_ms(fn, calls: int = 10):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
     kernels = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -165,6 +183,30 @@ def profiler_sees_device() -> bool:
         print(f"torch.profiler failed: {exc}", flush=True)
         return False
     return seen > 0
+
+
+def profiled_span_ms(fn, fragment: str, launches: int, calls: int = 10):
+    """Device time a call of ``fn()`` spends in the kernels whose name holds
+    ``fragment``, from the first one's start to the last one's end (so a
+    launch that starts early and waits for the one before it counts once),
+    over ``calls`` calls, each waited for, that each launch ``launches`` of
+    them; None where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and fragment in e.name)
+    if len(kernels) != calls * launches:
+        return None
+    spans = [max(end for _, end in kernels[i:i + launches]) - kernels[i][0]
+             for i in range(0, len(kernels), launches)]
+    return sum(spans) / calls / 1e3
 
 
 def kernel_ms_of(profiled, fragment: str):
@@ -323,6 +365,85 @@ def phase_k1(n_validators: int, seed: int) -> dict:
 # -- phase 2b ---------------------------------------------------------------
 
 
+def ptxas_report(log_path: str, fragment: str) -> list:
+    """The lines of ``nvcc -Xptxas -v``'s report on the kernel whose name
+    holds ``fragment``: registers, spills, shared memory."""
+    lines, inside = [], False
+    with open(log_path) as log:
+        for line in log.read().splitlines():
+            if "Compiling entry function" in line:
+                inside = fragment in line
+            if inside:
+                lines.append(line.strip())
+    return lines
+
+
+def sass_opcode_counts(lib_path: str):
+    """{kernel name: Counter of SASS opcodes} of the library, from
+    ``cuobjdump -sass`` (static counts: each instruction of the code once),
+    or None where cuobjdump is missing."""
+    import collections
+    import os
+    import re
+    import shutil
+
+    local = "/usr/local/cuda/bin/cuobjdump"
+    tool = shutil.which("cuobjdump") or (local if os.path.exists(local) else None)
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in out.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = collections.Counter()
+            continue
+        hit = instr.search(line)
+        if hit and name is not None:
+            counts[name][hit.group(1)] += 1
+    return counts
+
+
+def by_pipe(opcodes) -> dict:
+    """Instruction counts by pipe (``SASS_PIPES``; the rest under "other")."""
+    pipes = dict.fromkeys((*SASS_PIPES, "other"), 0)
+    for op, n in opcodes.items():
+        base = op.split(".")[0]
+        pipe = next((k for k, v in SASS_PIPES.items() if base in v), "other")
+        pipes[pipe] += n
+    return pipes
+
+
+def print_sass(lib_path: str) -> dict:
+    """Print the SASS opcode counts of K1 and K2 by pipe, and per round of
+    their one unrolled message hash; return K2's counts by pipe (None where
+    cuobjdump is missing)."""
+    counts = sass_opcode_counts(lib_path)
+    if counts is None:
+        print("SASS opcode counts: not measured (no cuobjdump)", flush=True)
+        return None
+    k2_pipes = None
+    for label, fragment in (("K1", "sha256_block64_kernel"),
+                            ("K2", "tree_reduce_kernel")):
+        names = [k for k in counts if fragment in k]
+        if not names:
+            raise AssertionError(f"cuobjdump shows no {fragment} ({label})")
+        ops = counts[names[0]]
+        pipes = by_pipe(ops)
+        per_round = ", ".join(f"{k} {v / ROUNDS_PER_MESSAGE:.2f}"
+                              for k, v in pipes.items())
+        top = ", ".join(f"{op} {n}" for op, n in ops.most_common())
+        print(f"SASS {label} ({sum(ops.values())} instructions, static): by "
+              f"pipe {pipes}; a round of its one message hash: {per_round}; "
+              f"opcodes: {top}", flush=True)
+        if label == "K2":
+            k2_pipes = pipes
+    return k2_pipes
+
+
 def _word_err(got: torch.Tensor, want: torch.Tensor) -> int:
     from consensus_specs_tpu_torch.ops import sha256
 
@@ -334,7 +455,7 @@ def phase_k2(n_validators: int, seed: int) -> dict:
     from consensus_specs_tpu_torch.ops import merkle_resident, sha256
 
     rng = np.random.default_rng(seed + 1)
-    max_err = 0
+    max_err, pass_counts = 0, set()
     for k in range(20):
         host = rng.integers(0, 2**64, 4 << k, dtype=np.uint64)
         host[0] = 2**64 - 1  # top bits set
@@ -353,8 +474,10 @@ def phase_k2(n_validators: int, seed: int) -> dict:
                                  f"chunks: max |diff| {err}")
         if passes != sha256.k2_plan(1 << k)[0]:
             raise AssertionError(f"K2 ran {passes} passes at 2^{k} chunks")
-    print("K2 == plain == per-level route at 2^0 .. 2^19 chunks (1 to 3 "
-          "passes, as the launcher reported them)", flush=True)
+        pass_counts.add(passes)
+    print(f"K2 == plain == per-level route at 2^0 .. 2^19 chunks "
+          f"({sorted(pass_counts)} passes, as the launcher reported them)",
+          flush=True)
 
     values = _balance_values(n_validators, seed)
     n_chunks = values.shape[0] // 4
@@ -385,18 +508,31 @@ def phase_k2(n_validators: int, seed: int) -> dict:
     bytes_ms = (values.numel() * 8 + 32) / PEAK_BYTES_PER_S * 1e3
     bound, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
                        else (bytes_ms, "bytes"))
-    clock_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
-    level_cycles = sha256.OPS_PER_MESSAGE * INT_ISSUE_CYCLES
-    dep_model_ms = levels * level_cycles / (clock_mhz * 1e6) * 1e3
     print(f"main-path root ({n_chunks} chunks, {n_messages} messages, "
           f"{levels} levels): K2 {k2_a:.5f} / {k2_b:.5f} ms "
           f"({sha256.k2_plan(n_chunks)[0]} launches a call), per-level route "
           f"{route_a:.5f} / {route_b:.5f} ms (torch packing + {levels} K1 "
           f"launches), plain {plain_ms:.3f} ms; bound {bound:.5f} ms "
-          f"({bound_by}; operations {ops_ms:.5f}, bytes {bytes_ms:.5f}), "
-          f"dependency model (not a bound) {dep_model_ms:.5f} ms ({levels} "
-          f"levels x {level_cycles} issue cycles at {clock_mhz:.0f} MHz)",
+          f"({bound_by}; operations {ops_ms:.5f}, bytes {bytes_ms:.5f})",
           flush=True)
+
+    # what the compiler made of K2, and two models of its chain
+    lib = sha256.build_kernel()
+    for line in ptxas_report(lib + ".log", "tree_reduce_kernel"):
+        print(f"  K2 ptxas: {line}", flush=True)
+    k2_pipes = print_sass(lib)
+    clock_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    chain_cycles = ROUNDS_PER_MESSAGE * CHAIN_OPS_PER_ROUND * DEPENDENT_LATENCY_CYCLES
+    chain_ms = levels * chain_cycles / (clock_mhz * 1e6) * 1e3
+    issue_cycles = None if k2_pipes is None else k2_pipes["alu"] * INT_ISSUE_CYCLES
+    issue_text = ("not measured (no SASS counts)" if issue_cycles is None else
+                  f"{levels * issue_cycles / (clock_mhz * 1e6) * 1e3:.5f} ms "
+                  f"({levels} levels x {issue_cycles} cycles: {INT_ISSUE_CYCLES} "
+                  f"a K2 ALU-pipe instruction)")
+    print(f"chain floor (model, not a bound): {chain_ms:.5f} ms ({levels} levels "
+          f"x {ROUNDS_PER_MESSAGE} rounds x {CHAIN_OPS_PER_ROUND} dependent "
+          f"instructions x {DEPENDENT_LATENCY_CYCLES} cycles at {clock_mhz:.0f} "
+          f"MHz); issue model (not a bound): {issue_text}", flush=True)
 
     # kernel-only device times, where the profiler sees the card
     kernel_ms = None
@@ -404,16 +540,18 @@ def phase_k2(n_validators: int, seed: int) -> dict:
         print("kernel-only times: not measured (no device time in the "
               "profiler)", flush=True)
     else:
+        passes = sha256.k2_plan(n_chunks)[0]
         prof_route = profiled_kernel_ms(lambda: _per_level_route(values))
         k2_kernel = kernel_ms_of(profiled_kernel_ms(k2), "tree_reduce_kernel")
+        kernel_ms = profiled_span_ms(k2, "tree_reduce_kernel", passes)
         k1_kernel = kernel_ms_of(prof_route, "sha256_block64_kernel")
-        if k2_kernel is None or k1_kernel is None:
+        if k2_kernel is None or k1_kernel is None or kernel_ms is None:
             raise AssertionError("the profiler saw device time but not K2's "
                                  "or K1's kernel")
-        kernel_ms = k2_kernel[0]
-        print(f"kernel-only (torch.profiler): K2 {k2_kernel[0]:.5f} ms in "
-              f"{k2_kernel[1]:g} launches a call; per-level route: K1 "
-              f"{k1_kernel[0]:.5f} ms in {k1_kernel[1]:g} launches, all its "
+        print(f"kernel-only (torch.profiler): K2 {kernel_ms:.5f} ms from its "
+              f"first pass's start to its last one's end, its {k2_kernel[1]:g} "
+              f"launches a call {k2_kernel[0]:.5f} ms summed; per-level route: "
+              f"K1 {k1_kernel[0]:.5f} ms in {k1_kernel[1]:g} launches, all its "
               f"kernels {prof_route[1]:.5f} ms", flush=True)
         small = {}
         for k in (1, 5):
@@ -423,9 +561,10 @@ def phase_k2(n_validators: int, seed: int) -> dict:
                 "tree_reduce_kernel")[0]
         # 2 chunks: one message; 32 chunks: five levels in one warp
         level_us = (small[5] - small[1]) / 4 * 1e3
+        model = "" if issue_cycles is None else f" against the issue model's {issue_cycles}"
         print(f"one level in one warp (K2 at 32 chunks less K2 at 2, over "
               f"4 levels): {level_us:.3f} us, {level_us * clock_mhz:.0f} "
-              f"cycles against the model's {level_cycles}", flush=True)
+              f"cycles{model}", flush=True)
     return {"max_abs_err": max_err, "ms": k2_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "kernel_ms": kernel_ms,
             "per_level_route_ms": route_ms}

@@ -15,7 +15,7 @@ design are noted in the source).
 raises), on a CPU tensor it runs ``sha256_block64_plain``, the plain torch
 version of the same function.  The same library holds K2
 (``csrc/sha256_tree.cu``), the merkle root of a packed uint64 list in one
-launch up to 512 chunks, two up to 2^18 and three up to 2^27;
+launch up to 1,024 chunks, two up to 2^20 and three up to 2^30;
 ``launch_u64_list_root`` binds it, and
 ``ops/merkle_resident.packed_u64_root`` is its entry.  Every failure of
 the kernels (no compiler, a failed build or load, a launch error, a pass
@@ -227,12 +227,12 @@ def _launch_k1(words: torch.Tensor) -> torch.Tensor:
     return out
 
 
-K2_LEAVES_PER_CTA = 512  # kLeavesPerCta in csrc/sha256_tree.cu
+K2_LEAVES_PER_CTA = 1024  # kLeavesPerCta in csrc/sha256_tree.cu
 
 
 def k2_plan(n_chunks: int) -> tuple:
     """(passes, scratch digests) of K2 for a 2^k-chunk tree: each pass
-    reduces 512 leaves a CTA, and every pass but the last writes its CTA
+    reduces 1,024 leaves a CTA, and every pass but the last writes its CTA
     roots to scratch.  Sizes the scratch; the launcher reports the passes
     it ran, and the wrapper holds them to this plan."""
     passes, scratch, n = 1, 0, n_chunks

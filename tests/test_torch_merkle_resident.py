@@ -147,10 +147,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_chunks", [1, 2, 512, 1024, 1 << 17, 1 << 19])
+@pytest.mark.parametrize("n_chunks", [1 << k for k in range(21)])
 def test_k2_matches_plain(cuda_device, n_chunks):
-    """One, two and three passes (2^19 chunks); the count is what the
-    launcher reports it ran."""
+    """Every power of two from 1 to 2^20 chunks: one pass up to 1,024
+    chunks, two above; the count is what the launcher reports it ran."""
     from consensus_specs_tpu_torch.ops import sha256
 
     values = _u64_patterns(4 * n_chunks, seed=n_chunks)
@@ -237,10 +237,11 @@ def test_resident_list_refuses_non_int64_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [5, 16_384, 100_000])
+@pytest.mark.parametrize("n", sorted({5, 100_000} | {4 << k for k in range(21)}))
 def test_resident_list_root_on_the_card(cuda_device, n):
     """``contents_subtree_root`` on the card (K2) against the plain
-    version on the CPU, before and after a wrapping add."""
+    version on the CPU, before and after a wrapping add: every power of
+    two from 1 to 2^20 chunks (4 << k values), and two lengths that pad."""
     from consensus_specs_tpu_torch.ops import sha256
 
     values = _near_wrap_patterns(n, seed=n)

@@ -9,6 +9,7 @@ digests are integers.  The CUDA kernel K1 is held against both on a GPU
 import hashlib
 import os
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -113,11 +114,49 @@ def test_unavailable_library_raises_kernel_error(monkeypatch, failure):
 
 
 @pytest.mark.parametrize("n_chunks,plan", [
-    (1, (1, 0)), (512, (1, 0)), (1024, (2, 2)), (1 << 17, (2, 256)),
-    (1 << 18, (2, 512)), (1 << 19, (3, 1026)),
+    (1, (1, 0)), (512, (1, 0)), (1024, (1, 0)), (1 << 17, (2, 128)),
+    (1 << 18, (2, 256)), (1 << 19, (2, 512)), (1 << 20, (2, 1024)),
+    (1 << 21, (3, 2050)),
 ])
 def test_k2_plan_counts_passes_and_scratch(n_chunks, plan):
     assert sha256.k2_plan(n_chunks) == plan
+
+
+def _tree_source_constants() -> dict:
+    """The ``constexpr int`` constants of ``csrc/sha256_tree.cu``, each a
+    product of literals and the constants before it."""
+    path = os.path.join(sha256._CSRC_DIR, "sha256_tree.cu")
+    text = pathlib.Path(path).read_text()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        value = 1
+        for factor in expr.split("*"):  # a product of literals and names
+            factor = factor.strip()
+            value *= int(factor) if factor.isdigit() else consts[factor]
+        consts[name] = value
+    return consts
+
+
+def test_k2_plan_mirrors_the_launcher_source():
+    """``K2_LEAVES_PER_CTA`` and ``k2_plan`` against the launcher's own
+    constants and loop (``u64_list_root_launch``), read from the source:
+    a CTA of ``kThreads`` threads hashes two leaves a thread, a pass
+    reduces ``kLeavesPerCta`` leaves a CTA, and every pass but the last
+    writes its CTA roots to scratch."""
+    consts = _tree_source_constants()
+    assert consts["kLeavesPerCta"] == 2 * consts["kThreads"]
+    assert sha256.K2_LEAVES_PER_CTA == consts["kLeavesPerCta"]
+    for k in range(31):
+        n, passes, scratch = 1 << k, 0, 0
+        while True:
+            per_cta = min(n, consts["kLeavesPerCta"])
+            blocks = n // per_cta
+            passes += 1
+            if blocks == 1:
+                break
+            scratch += blocks
+            n = blocks
+        assert sha256.k2_plan(1 << k) == (passes, scratch), k
 
 
 @pytest.mark.parametrize("min_batch", [None, 1])
