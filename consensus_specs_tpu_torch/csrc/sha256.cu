@@ -22,8 +22,7 @@
 // Design for that bound: the 64 rounds are unrolled with the 16-word
 // schedule window in registers; the padding block's schedule is the same
 // for every message, so K[i] + W_pad[i] is one constant table and that
-// compression does no schedule work at all.  The adds run on the FMA pipe
-// beside the ALU pipe's logic operations (sha256_core.cuh says how).  Loads and stores are 16-byte
+// compression does no schedule work at all.  Loads and stores are 16-byte
 // vectors of each thread's own row.  Coalesced transposed loads and
 // several messages a thread come in later changes; the fused multi-level
 // tree reduction is K2 (sha256_tree.cu).  The compression itself lives in
@@ -34,7 +33,7 @@ namespace {
 
 __global__ void __launch_bounds__(128)
 sha256_block64_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
-                      long long n, uint32_t one, uint32_t minus_one) {
+                      long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t w[16];
@@ -47,7 +46,9 @@ sha256_block64_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
     w[4 * q + 3] = v.w;
   }
   uint32_t st[8];
-  hash64(w, st, FmaPipe(one, minus_one));
+  init_state(st);
+  compress_message(st, w);
+  compress_padding(st);
   out[i * 2 + 0] = make_uint4(st[0], st[1], st[2], st[3]);
   out[i * 2 + 1] = make_uint4(st[4], st[5], st[6], st[7]);
 }
@@ -64,6 +65,6 @@ extern "C" int sha256_block64_launch(const void* in, void* out, long long n,
   const long long blocks = (n + threads - 1) / threads;
   sha256_block64_kernel<<<(unsigned int)blocks, threads, 0,
                           (cudaStream_t)stream>>>(
-      (const uint4*)in, (uint4*)out, n, 1u, 0xffffffffu);
+      (const uint4*)in, (uint4*)out, n);
   return (int)cudaGetLastError();
 }

@@ -44,83 +44,28 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
 }
 
-// The adds on the FMA pipe.  On Hopper a warp instruction takes two issue
-// cycles on its sub-partition's 16-lane integer (ALU) pipe however few of
-// its lanes are active, and IMAD runs on the FMA pipe beside it, which also
-// takes two; a warp issues to the two in alternate cycles.  The ten logic
-// operations of a round (six funnel-shift rotates, the two three-way xors
-// of Sigma0 and Sigma1, Ch and Maj as one LOP3 each) run only on the ALU
-// pipe, so every add, and the schedule's two plain right shifts, go to the
-// FMA pipe: an add is a multiply-add by `one` and a subtraction one by
-// `minus_one`, kernel arguments (1 and 2^32 - 1) that the compiler cannot
-// see, written as PTX so that neither compiler folds them back into an
-// IADD3 on the ALU pipe; x >> 3 and x >> 10 are the high words of x * 2^29
-// and x * 2^22 (IMAD.HI).  That leaves 10 ALU instructions a compression
-// round, against 14 when every add is an IADD3.
-struct FmaPipe {
-  uint32_t one, minus_one, m29, m22;
-  __device__ FmaPipe(uint32_t one_, uint32_t minus_one_)
-      : one(one_), minus_one(minus_one_), m29(one_ << 29), m22(one_ << 22) {}
-  __device__ __forceinline__ uint32_t mad(uint32_t x, uint32_t m, uint32_t y) const {
-    uint32_t r;
-    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(m), "r"(y));
-    return r;
-  }
-  __device__ __forceinline__ uint32_t add(uint32_t x, uint32_t y) const {
-    return mad(x, one, y);
-  }
-  __device__ __forceinline__ uint32_t sub(uint32_t x, uint32_t y) const {
-    return mad(y, minus_one, x);  // x - y
-  }
-  __device__ __forceinline__ uint32_t shr3(uint32_t x) const {
-    return __umulhi(x, m29);
-  }
-  __device__ __forceinline__ uint32_t shr10(uint32_t x) const {
-    return __umulhi(x, m22);
-  }
-};
-
-// One round; kw = K[i] + W[i].  Written so that the chain from e to the
-// next e is three dependent instructions (a rotate, the xor, an add; the
-// d + h + K + W sum and Ch are ready before Sigma1), and a' is e' less d
-// plus Sigma0(a) and Maj: a' = T1 + T2 and e' = d + T1 as the standard has
-// them, with T1 = h + Sigma1 + Ch + kw.
 __device__ __forceinline__ void round_step(uint32_t& a, uint32_t& b, uint32_t& c,
                                            uint32_t& d, uint32_t& e, uint32_t& f,
-                                           uint32_t& g, uint32_t& h, uint32_t kw,
-                                           const FmaPipe& p) {
-  const uint32_t dhk = p.add(d, p.add(h, kw));
+                                           uint32_t& g, uint32_t& h, uint32_t kw) {
   const uint32_t s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
   const uint32_t ch = (e & f) ^ (~e & g);
-  const uint32_t e_next = p.add(s1, p.add(ch, dhk));
+  const uint32_t t1 = h + s1 + ch + kw;
   const uint32_t s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
   const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-  const uint32_t a_next = p.add(s0, p.add(p.sub(maj, d), e_next));
   h = g;
   g = f;
   f = e;
-  e = e_next;
+  e = d + t1;
   d = c;
   c = b;
   b = a;
-  a = a_next;
-}
-
-__device__ __forceinline__ void feed_forward(uint32_t st[8], uint32_t a, uint32_t b,
-                                             uint32_t c, uint32_t d, uint32_t e,
-                                             uint32_t f, uint32_t g, uint32_t h,
-                                             const FmaPipe& p) {
-  st[0] = p.add(st[0], a); st[1] = p.add(st[1], b);
-  st[2] = p.add(st[2], c); st[3] = p.add(st[3], d);
-  st[4] = p.add(st[4], e); st[5] = p.add(st[5], f);
-  st[6] = p.add(st[6], g); st[7] = p.add(st[7], h);
+  a = t1 + s0 + maj;
 }
 
 // Compression of the message block: schedule kept as a rolling 16-word
 // window in registers (every index is a compile-time constant once the
 // loop is unrolled).
-__device__ __forceinline__ void compress_message(uint32_t st[8], uint32_t w[16],
-                                                 const FmaPipe& p) {
+__device__ __forceinline__ void compress_message(uint32_t st[8], uint32_t w[16]) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
@@ -128,24 +73,26 @@ __device__ __forceinline__ void compress_message(uint32_t st[8], uint32_t w[16],
     if (i >= 16) {
       const uint32_t w15 = w[(i - 15) & 15];
       const uint32_t w2 = w[(i - 2) & 15];
-      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ p.shr3(w15);
-      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ p.shr10(w2);
-      w[i & 15] = p.add(s1, p.add(s0, p.add(w[i & 15], w[(i - 7) & 15])));
+      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+      w[i & 15] = w[i & 15] + s0 + w[(i - 7) & 15] + s1;
     }
-    round_step(a, b, c, d, e, f, g, h, p.add(w[i & 15], kK[i]), p);
+    round_step(a, b, c, d, e, f, g, h, kK[i] + w[i & 15]);
   }
-  feed_forward(st, a, b, c, d, e, f, g, h, p);
+  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
 // Compression of the constant padding block: no schedule work.
-__device__ __forceinline__ void compress_padding(uint32_t st[8], const FmaPipe& p) {
+__device__ __forceinline__ void compress_padding(uint32_t st[8]) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    round_step(a, b, c, d, e, f, g, h, kKPad[i], p);
+    round_step(a, b, c, d, e, f, g, h, kKPad[i]);
   }
-  feed_forward(st, a, b, c, d, e, f, g, h, p);
+  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
 // The initial hash value H0.
@@ -156,11 +103,10 @@ __device__ __forceinline__ void init_state(uint32_t st[8]) {
 }
 
 // SHA-256 of one 64-byte message (16 big-endian words) into st.
-__device__ __forceinline__ void hash64(uint32_t w[16], uint32_t st[8],
-                                       const FmaPipe& p) {
+__device__ __forceinline__ void hash64(uint32_t w[16], uint32_t st[8]) {
   init_state(st);
-  compress_message(st, w, p);
-  compress_padding(st, p);
+  compress_message(st, w);
+  compress_padding(st);
 }
 
 }  // namespace

@@ -22,11 +22,8 @@
 // takes its pipe's two issue cycles however few of its lanes are active.
 // So a lone level costs what one message's instructions cost one warp, and
 // the design cuts those instructions and what surrounds them:
-// 1. The compression (sha256_core.cuh, shared with K1) puts its adds and
-//    the schedule's plain shifts on the FMA pipe as IMAD, leaving the ten
-//    logic operations of a round on the ALU pipe; a lone warp issues to
-//    both pipes in alternate cycles.  From e to the next e is three
-//    dependent instructions.
+// 1. The compression is sha256_core.cuh, shared with K1: its adds are
+//    three-input IADD3s, so a message costs the fewest instructions.
 // 2. Packing happens in the load.  A chunk is 4 LE uint64 values, 32
 //    contiguous bytes, and its SHA-256 words are the byte-reversed 32-bit
 //    words of the same memory.  Each CTA reads its slice as coalesced
@@ -67,8 +64,7 @@ constexpr int kWarp = 32;
 
 __global__ void __launch_bounds__(kThreads, 1)
 tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
-                   int leaves_per_cta, bool from_u64, uint32_t one,
-                   uint32_t minus_one) {
+                   int leaves_per_cta, bool from_u64) {
   // the pass before this one (if any) has finished and its roots are
   // visible; the next pass may launch and wait in turn
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -100,7 +96,6 @@ tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
     return;
   }
 
-  const FmaPipe pipe(one, minus_one);
   uint32_t st[8];
   bool in_rows = true;  // this level's pairs are in shared memory
 #pragma unroll 1
@@ -123,7 +118,7 @@ tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
         w[8 + j] = __shfl_sync(0xffffffffu, st[j], 2 * t + 1);
       }
     }
-    if (busy) hash64(w, st, pipe);
+    if (busy) hash64(w, st);
     if (active > kWarp) {
       __syncthreads();  // every pair of this level is read before any is overwritten
       if (t < active) {
@@ -188,8 +183,7 @@ extern "C" int u64_list_root_launch(const void* values, void* scratch,
     uint4* dst = blocks == 1 ? (uint4*)out : next;
     cfg.gridDim = dim3((unsigned int)blocks);
     const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, tree_reduce_kernel, src, dst, per_cta, from_u64, 1u,
-        0xffffffffu);
+        &cfg, tree_reduce_kernel, src, dst, per_cta, from_u64);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it: the caller raises
       return (int)err;
