@@ -71,14 +71,13 @@ PEAK_INT32_OPS_PER_S = 33.5e12
 N_VALIDATORS = 400_000
 
 # Two models, not bounds, of K2's dependency chain (csrc/sha256_tree.cu),
-# printed beside its time and never in the kernels line.  The issue model:
-# a warp instruction takes two issue cycles on an SM sub-partition's
-# 16-lane ALU pipe (64 int32 lanes an SM), so a message hashed alone on its
-# warp costs at least twice its ALU-pipe instructions on each dependent
-# tree level (the count read from the SASS).  The chain floor: each of the
-# 128 rounds of a level waits for three dependent instructions (from e to
-# the next e: a rotate, the xor, an add) of about four cycles each.
-INT_ISSUE_CYCLES = 2
+# printed beside its time and never in the kernels line.  The schedule
+# model: a warp alone on its SM sub-partition issues as ptxas scheduled
+# it, so each dependent tree level costs the scheduled cycles of one
+# message hash (the stall counts in the SASS of K1's kernel, which is one
+# hash and its loads and stores).  The chain floor: each of the 128 rounds
+# of a level waits for three dependent instructions (from e to the next e:
+# a rotate, the xor, an add) of about four cycles each.
 CHAIN_OPS_PER_ROUND = 3
 DEPENDENT_LATENCY_CYCLES = 4
 ROUNDS_PER_MESSAGE = 128
@@ -188,9 +187,11 @@ def profiler_sees_device() -> bool:
 def profiled_span_ms(fn, fragment: str, launches: int, calls: int = 10):
     """Device time a call of ``fn()`` spends in the kernels whose name holds
     ``fragment``, from the first one's start to the last one's end (so a
-    launch that starts early and waits for the one before it counts once),
-    over ``calls`` calls, each waited for, that each launch ``launches`` of
-    them; None where the profiler saw none."""
+    launch that starts early and waits for the one before it counts once):
+    the median over ``calls`` calls, each waited for, that each launch
+    ``launches`` of them (the median, because the profiler's first call can
+    start a dependent launch milliseconds late); None where the profiler
+    saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -204,9 +205,9 @@ def profiled_span_ms(fn, fragment: str, launches: int, calls: int = 10):
                      and fragment in e.name)
     if len(kernels) != calls * launches:
         return None
-    spans = [max(end for _, end in kernels[i:i + launches]) - kernels[i][0]
-             for i in range(0, len(kernels), launches)]
-    return sum(spans) / calls / 1e3
+    spans = sorted(max(end for _, end in kernels[i:i + launches]) - kernels[i][0]
+                   for i in range(0, len(kernels), launches))
+    return spans[len(spans) // 2] / 1e3
 
 
 def kernel_ms_of(profiled, fragment: str):
@@ -378,10 +379,15 @@ def ptxas_report(log_path: str, fragment: str) -> list:
     return lines
 
 
-def sass_opcode_counts(lib_path: str):
-    """{kernel name: Counter of SASS opcodes} of the library, from
-    ``cuobjdump -sass`` (static counts: each instruction of the code once),
-    or None where cuobjdump is missing."""
+def sass_kernels(lib_path: str):
+    """{kernel name: (Counter of SASS opcodes, scheduled cycles)} of the
+    library, from ``cuobjdump -sass`` (static: each instruction of the code
+    once), or None where cuobjdump is missing.  The scheduled cycles are
+    the sum of the stall counts ptxas wrote into the instructions' control
+    bits (bits 41..44 of the upper 64-bit word): the cycles a warp alone on
+    its sub-partition waits after each instruction before it issues the
+    next, for every wait of fixed length (memory waits on scoreboards are
+    not in it)."""
     import collections
     import os
     import re
@@ -393,18 +399,27 @@ def sass_opcode_counts(lib_path: str):
         return None
     out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=120, check=True).stdout
-    counts, name = {}, None
+    kernels, name, pending = {}, None, False
     instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+    upper = re.compile(r"^\s*/\* (0x[0-9a-f]{16}) \*/\s*$")
     for line in out.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
             name = head.group(1)
-            counts[name] = collections.Counter()
+            kernels[name] = [collections.Counter(), 0]
+            continue
+        if name is None:
             continue
         hit = instr.search(line)
-        if hit and name is not None:
-            counts[name][hit.group(1)] += 1
-    return counts
+        if hit:
+            kernels[name][0][hit.group(1)] += 1
+            pending = True
+            continue
+        word = upper.match(line)
+        if word and pending:
+            kernels[name][1] += (int(word.group(1), 16) >> 41) & 0xF
+            pending = False
+    return {k: (ops, cycles) for k, (ops, cycles) in kernels.items()}
 
 
 def by_pipe(opcodes) -> dict:
@@ -417,31 +432,32 @@ def by_pipe(opcodes) -> dict:
     return pipes
 
 
-def print_sass(lib_path: str) -> dict:
-    """Print the SASS opcode counts of K1 and K2 by pipe, and per round of
-    their one unrolled message hash; return K2's counts by pipe (None where
-    cuobjdump is missing)."""
-    counts = sass_opcode_counts(lib_path)
-    if counts is None:
+def print_sass(lib_path: str):
+    """Print the SASS opcode counts of K1 and K2 by pipe, per round of
+    their one unrolled message hash, and their scheduled cycles; return
+    K1's scheduled cycles, one message hash's (None where cuobjdump is
+    missing)."""
+    kernels = sass_kernels(lib_path)
+    if kernels is None:
         print("SASS opcode counts: not measured (no cuobjdump)", flush=True)
         return None
-    k2_pipes = None
+    k1_cycles = None
     for label, fragment in (("K1", "sha256_block64_kernel"),
                             ("K2", "tree_reduce_kernel")):
-        names = [k for k in counts if fragment in k]
+        names = [k for k in kernels if fragment in k]
         if not names:
             raise AssertionError(f"cuobjdump shows no {fragment} ({label})")
-        ops = counts[names[0]]
+        ops, cycles = kernels[names[0]]
         pipes = by_pipe(ops)
         per_round = ", ".join(f"{k} {v / ROUNDS_PER_MESSAGE:.2f}"
                               for k, v in pipes.items())
         top = ", ".join(f"{op} {n}" for op, n in ops.most_common())
-        print(f"SASS {label} ({sum(ops.values())} instructions, static): by "
-              f"pipe {pipes}; a round of its one message hash: {per_round}; "
-              f"opcodes: {top}", flush=True)
-        if label == "K2":
-            k2_pipes = pipes
-    return k2_pipes
+        print(f"SASS {label} ({sum(ops.values())} instructions, {cycles} "
+              f"scheduled cycles, static): by pipe {pipes}; a round of its "
+              f"one message hash: {per_round}; opcodes: {top}", flush=True)
+        if label == "K1":
+            k1_cycles = cycles
+    return k1_cycles
 
 
 def _word_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -520,19 +536,18 @@ def phase_k2(n_validators: int, seed: int) -> dict:
     lib = sha256.build_kernel()
     for line in ptxas_report(lib + ".log", "tree_reduce_kernel"):
         print(f"  K2 ptxas: {line}", flush=True)
-    k2_pipes = print_sass(lib)
+    issue_cycles = print_sass(lib)
     clock_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     chain_cycles = ROUNDS_PER_MESSAGE * CHAIN_OPS_PER_ROUND * DEPENDENT_LATENCY_CYCLES
     chain_ms = levels * chain_cycles / (clock_mhz * 1e6) * 1e3
-    issue_cycles = None if k2_pipes is None else k2_pipes["alu"] * INT_ISSUE_CYCLES
-    issue_text = ("not measured (no SASS counts)" if issue_cycles is None else
+    issue_text = ("not measured (no SASS)" if issue_cycles is None else
                   f"{levels * issue_cycles / (clock_mhz * 1e6) * 1e3:.5f} ms "
-                  f"({levels} levels x {issue_cycles} cycles: {INT_ISSUE_CYCLES} "
-                  f"a K2 ALU-pipe instruction)")
+                  f"({levels} levels x {issue_cycles} scheduled cycles of K1's "
+                  f"one hash)")
     print(f"chain floor (model, not a bound): {chain_ms:.5f} ms ({levels} levels "
           f"x {ROUNDS_PER_MESSAGE} rounds x {CHAIN_OPS_PER_ROUND} dependent "
           f"instructions x {DEPENDENT_LATENCY_CYCLES} cycles at {clock_mhz:.0f} "
-          f"MHz); issue model (not a bound): {issue_text}", flush=True)
+          f"MHz); schedule model (not a bound): {issue_text}", flush=True)
 
     # kernel-only device times, where the profiler sees the card
     kernel_ms = None
@@ -561,7 +576,8 @@ def phase_k2(n_validators: int, seed: int) -> dict:
                 "tree_reduce_kernel")[0]
         # 2 chunks: one message; 32 chunks: five levels in one warp
         level_us = (small[5] - small[1]) / 4 * 1e3
-        model = "" if issue_cycles is None else f" against the issue model's {issue_cycles}"
+        model = ("" if issue_cycles is None
+                 else f" against the schedule model's {issue_cycles}")
         print(f"one level in one warp (K2 at 32 chunks less K2 at 2, over "
               f"4 levels): {level_us:.3f} us, {level_us * clock_mhz:.0f} "
               f"cycles{model}", flush=True)

@@ -62,24 +62,21 @@ __device__ __forceinline__ void round_step(uint32_t& a, uint32_t& b, uint32_t& c
   a = t1 + s0 + maj;
 }
 
-// Schedule word i (16 <= i < 64) of the message block into w[i & 15], the
-// schedule being kept as a rolling 16-word window in registers (every index
-// is a compile-time constant once the caller's loop is unrolled).
-__device__ __forceinline__ void schedule_step(uint32_t w[16], int i) {
-  const uint32_t w15 = w[(i - 15) & 15];
-  const uint32_t w2 = w[(i - 2) & 15];
-  const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-  const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-  w[i & 15] = w[i & 15] + s0 + w[(i - 7) & 15] + s1;
-}
-
-// Compression of the message block, its schedule computed in step.
+// Compression of the message block: schedule kept as a rolling 16-word
+// window in registers (every index is a compile-time constant once the
+// loop is unrolled).
 __device__ __forceinline__ void compress_message(uint32_t st[8], uint32_t w[16]) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    if (i >= 16) schedule_step(w, i);
+    if (i >= 16) {
+      const uint32_t w15 = w[(i - 15) & 15];
+      const uint32_t w2 = w[(i - 2) & 15];
+      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+      w[i & 15] = w[i & 15] + s0 + w[(i - 7) & 15] + s1;
+    }
     round_step(a, b, c, d, e, f, g, h, kK[i] + w[i & 15]);
   }
   st[0] += a; st[1] += b; st[2] += c; st[3] += d;

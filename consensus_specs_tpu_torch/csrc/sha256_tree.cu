@@ -18,37 +18,32 @@
 // the one below, and a message is two compressions of 64 rounds that run
 // strictly in order on one thread.  Only levels 1 and 2 are wide enough to
 // fill the card (level 1 is half the work); the other 15 hash at most 128
-// messages a CTA.  There a warp is alone on its sub-partition, and a lone
-// warp issues one instruction every two cycles whichever pipe runs it and
-// however few of its lanes are active (measured on an H100: a tree level
-// costs one warp about twice the SASS instructions of one message hash).
-// So a lone level costs what its one warp's instructions cost, and the
-// design takes instructions off that warp:
-// 1. The compression is sha256_core.cuh, shared with K1, whose adds are
-//    three-input IADD3s: the fewest instructions a message.  (Adds moved
-//    to the FMA pipe as IMAD freed no issue cycles and cost more
-//    instructions; see PERF.md.)
+// messages a CTA, one warp or none on each sub-partition.  Such a lone
+// level costs what one message hash costs one warp, about two cycles an
+// instruction (2.44 us a level against ~2,400 SASS instructions a hash on
+// an H100 80GB HBM3 at 700 W), and
+// neither fewer instructions on that warp (the schedule computed by a
+// partner warp), nor a shorter chain a round, nor adds moved to the FMA
+// pipe as IMAD brought it lower (PERF.md has the numbers).  So the design
+// keeps the compression and cuts what surrounds it:
+// 1. The compression is sha256_core.cuh, shared with K1: its adds are
+//    three-input IADD3s, the fewest instructions a message.
 // 2. Packing happens in the load.  A chunk is 4 LE uint64 values, 32
 //    contiguous bytes, and its SHA-256 words are the byte-reversed 32-bit
 //    words of the same memory.  Each CTA reads its slice as coalesced
 //    16-byte vectors and reverses each word with one __byte_perm on the way
 //    into shared memory.
-// 3. A CTA of 512 threads reduces a subtree of up to 1,024 leaves.  While a
-//    level has more than 64 messages, thread t hashes leaf pair t from
-//    shared memory, with __syncthreads() between reading a level and
-//    overwriting it.  A pair of 32-byte leaves (16 words) sits in a row of
-//    17 words: thread t reads word j at bank (17t + j) mod 32, distinct
-//    across a warp since 17 is odd.  At 2^17 chunks pass 1 is 128 CTAs, one
-//    a SM, so each level's warps sit on distinct sub-partitions.
-// 4. The levels of at most 64 messages (the last seven of each pass) run
-//    in two pairs of warps: warps 0 and 1 run the 128 rounds of messages
-//    0..31 and 32..63, and warps 2 and 3, on the other two sub-partitions,
-//    compute their message schedules (K + W of rounds 16..63) into shared
-//    memory a quarter ahead, so the hashing warps issue the rounds and one
-//    shared load a round instead of the schedule's 480 instructions.  The
-//    four warps meet at named barriers of 128 threads, never at
-//    __syncthreads(); the other twelve warps have left.
-// 5. The tail stays on the card: when more than one CTA was needed, the CTA
+// 3. A CTA of 512 threads reduces a subtree of up to 1,024 leaves, so at
+//    2^17 chunks pass 1 is 128 CTAs, one a SM.  While a level has more than
+//    32 messages, thread t hashes leaf pair t from shared memory, with
+//    __syncthreads() between reading a level and overwriting it.  A pair of
+//    32-byte leaves (16 words) sits in a row of 17 words: thread t reads
+//    word j at bank (17t + j) mod 32, distinct across a warp since 17 is
+//    odd.  The last six levels (32 messages down to one) run in warp 0
+//    alone: each digest stays in its lane's registers and reaches the
+//    parent's lane by __shfl_sync, with no shared memory and no barrier;
+//    the other warps have left.
+// 4. The tail stays on the card: when more than one CTA was needed, the CTA
 //    roots (128 at 2^17 chunks) are reduced by the same kernel, which reads
 //    them as big-endian words without the byte reversal; a second pass of
 //    one CTA finishes any tree up to 2^20 chunks, a tree of at most 1,024
@@ -68,53 +63,6 @@ constexpr int kThreads = 512;               // threads a CTA
 constexpr int kLeavesPerCta = 2 * kThreads;  // leaves (32 B each) a CTA reduces
 constexpr int kRowWords = 17;               // a leaf pair's row: 16 words + 1 pad
 constexpr int kWarp = 32;
-constexpr int kPairLevel = 2 * kWarp;  // messages a level at most, to run in warp pairs
-constexpr int kPairThreads = 4 * kWarp;  // warps 0, 1 hash; 2, 3 schedule
-
-// Named barriers of warps 0..3 (barrier 0 is __syncthreads()): kRowsReady
-// once a level's pairs are in shared memory, then one for each quarter of
-// the schedule (rounds 16..31, 32..47, 48..63), which the schedule warps
-// arrive at and the hashing warps wait at.
-constexpr int kRowsReady = 1;
-constexpr int kQuarterReady = 2;  // + 0, 1, 2
-
-__device__ __forceinline__ void pair_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kPairThreads) : "memory");
-}
-
-__device__ __forceinline__ void pair_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kPairThreads) : "memory");
-}
-
-// A schedule warp's half of a message block: K[i] + W[i] for rounds
-// 16..63 into kw[(i - 16) * kWarp] (its lane's column), releasing each
-// quarter of 16 rounds as soon as it is written.
-__device__ __forceinline__ void schedule_for_partner(uint32_t w[16], uint32_t* kw) {
-#pragma unroll
-  for (int i = 16; i < 64; ++i) {
-    schedule_step(w, i);
-    kw[(i - 16) * kWarp] = kK[i] + w[i & 15];
-    if ((i & 15) == 15) pair_arrive(kQuarterReady + (i >> 4) - 1);
-  }
-}
-
-// A hashing warp's compression of the message block: rounds 0..15 from the
-// message words, rounds 16..63 from the partner's K + W, each quarter after
-// the partner has released it.
-__device__ __forceinline__ void compress_message_paired(uint32_t st[8],
-                                                        const uint32_t w[16],
-                                                        const uint32_t* kw) {
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    if (i >= 16 && (i & 15) == 0) pair_sync(kQuarterReady + (i >> 4) - 1);
-    round_step(a, b, c, d, e, f, g, h,
-               i < 16 ? kK[i] + w[i & 15] : kw[(i - 16) * kWarp]);
-  }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
@@ -124,8 +72,6 @@ tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
   asm volatile("griddepcontrol.wait;" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;");
   __shared__ uint32_t rows[(kLeavesPerCta / 2) * kRowWords];
-  // K + W of rounds 16..63 for each hashing warp's lanes
-  __shared__ uint32_t kw_rows[2][48 * kWarp];
   const int t = threadIdx.x;
   const uint4* src = in + (long long)blockIdx.x * leaves_per_cta * 2;
   uint4* dst = out + (long long)blockIdx.x * 2;
@@ -152,59 +98,44 @@ tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
     return;
   }
 
-  // Wide levels: thread t hashes pair t into leaf t of the level above.
-  int active = leaves_per_cta >> 1;
-#pragma unroll 1
-  for (; active > kPairLevel; active >>= 1) {
-    uint32_t st[8];
-    if (t < active) {
-      uint32_t w[16];
-      const uint32_t* row = rows + kRowWords * t;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) w[j] = row[j];
-      hash64(w, st);
-    }
-    __syncthreads();  // every pair of this level is read before any is overwritten
-    if (t < active) {
-      uint32_t* row = rows + kRowWords * (t >> 1) + 8 * (t & 1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) row[j] = st[j];
-    }
-    __syncthreads();
-  }
-
-  // Levels of at most 64 messages: warps 0 and 1 run the rounds of
-  // messages 0..31 and 32..63, and warps 2 and 3, on the other two
-  // sub-partitions, compute their schedules; every lane of the four works,
-  // lanes past `active` on garbage that nothing reads.  The other warps
-  // leave.
-  const int warp = t / kWarp;
-  if (warp >= 4) return;
-  const int m = (warp & 1) * kWarp + t % kWarp;  // this lane's message
-  uint32_t* kw = kw_rows[warp & 1] + t % kWarp;
   uint32_t st[8];
+  bool in_rows = true;  // this level's pairs are in shared memory
 #pragma unroll 1
-  for (; active > 0; active >>= 1) {
-    pair_sync(kRowsReady);
+  for (int active = leaves_per_cta >> 1; active > 0; active >>= 1) {
+    // In warp 0's levels every lane hashes, so the warp never diverges;
+    // lanes at or past `active` hash garbage that nothing reads.
+    const bool busy = t < (active > kWarp ? active : kWarp);
     uint32_t w[16];
-    const uint32_t* row = rows + kRowWords * m;
+    if (in_rows) {
+      if (busy) {
+        const uint32_t* row = rows + kRowWords * t;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) w[j] = row[j];
-    if (warp >= 2) {
-      schedule_for_partner(w, kw);
-      continue;
+        for (int j = 0; j < 16; ++j) w[j] = row[j];
+      }
+    } else {
+      // lane t's pair is the digests of lanes 2t and 2t + 1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        w[j] = __shfl_sync(0xffffffffu, st[j], 2 * t);
+        w[8 + j] = __shfl_sync(0xffffffffu, st[j], 2 * t + 1);
+      }
     }
-    init_state(st);
-    compress_message_paired(st, w, kw);
-    compress_padding(st);
-    if (m < active && active > 1) {
-      uint32_t* parent = rows + kRowWords * (m >> 1) + 8 * (m & 1);
+    if (busy) hash64(w, st);
+    if (active > kWarp) {
+      __syncthreads();  // every pair of this level is read before any is overwritten
+      if (t < active) {
+        uint32_t* row = rows + kRowWords * (t >> 1) + 8 * (t & 1);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) parent[j] = st[j];
+        for (int j = 0; j < 8; ++j) row[j] = st[j];
+      }
+      __syncthreads();
+    } else {
+      if (t >= kWarp) return;
+      in_rows = false;
     }
   }
 
-  // The subtree's root is message 0's digest.
+  // The subtree's root is lane 0's digest.
   if (t == 0) {
     dst[0] = make_uint4(st[0], st[1], st[2], st[3]);
     dst[1] = make_uint4(st[4], st[5], st[6], st[7]);
