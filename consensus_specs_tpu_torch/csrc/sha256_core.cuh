@@ -102,11 +102,4 @@ __device__ __forceinline__ void init_state(uint32_t st[8]) {
   st[6] = 0x1f83d9abu; st[7] = 0x5be0cd19u;
 }
 
-// SHA-256 of one 64-byte message (16 big-endian words) into st.
-__device__ __forceinline__ void hash64(uint32_t w[16], uint32_t st[8]) {
-  init_state(st);
-  compress_message(st, w);
-  compress_padding(st);
-}
-
 }  // namespace

@@ -19,13 +19,12 @@
 // strictly in order on one thread.  Only levels 1 and 2 are wide enough to
 // fill the card (level 1 is half the work); the other 15 hash at most 128
 // messages a CTA, one warp or none on each sub-partition.  Such a lone
-// level costs what one message hash costs one warp, about two cycles an
-// instruction (2.44 us a level against ~2,400 SASS instructions a hash on
-// an H100 80GB HBM3 at 700 W), and
-// neither fewer instructions on that warp (the schedule computed by a
-// partner warp), nor a shorter chain a round, nor adds moved to the FMA
-// pipe as IMAD brought it lower (PERF.md has the numbers).  So the design
-// keeps the compression and cuts what surrounds it:
+// level costs what one message hash costs one warp: about the cycles ptxas
+// scheduled for it (2.44 us a level against ~2,400 SASS instructions a hash
+// on an H100 80GB HBM3 at 700 W).  Adds moved to the FMA pipe as IMAD and
+// the schedule computed by a partner warp did not bring a level lower
+// (PERF.md has the numbers), so the design keeps the compression and cuts
+// what surrounds it:
 // 1. The compression is sha256_core.cuh, shared with K1: its adds are
 //    three-input IADD3s, the fewest instructions a message.
 // 2. Packing happens in the load.  A chunk is 4 LE uint64 values, 32
@@ -120,7 +119,11 @@ tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
         w[8 + j] = __shfl_sync(0xffffffffu, st[j], 2 * t + 1);
       }
     }
-    if (busy) hash64(w, st);
+    if (busy) {
+      init_state(st);
+      compress_message(st, w);
+      compress_padding(st);
+    }
     if (active > kWarp) {
       __syncthreads();  // every pair of this level is read before any is overwritten
       if (t < active) {
