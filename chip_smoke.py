@@ -82,6 +82,10 @@ CHAIN_OPS_PER_ROUND = 3
 DEPENDENT_LATENCY_CYCLES = 4
 ROUNDS_PER_MESSAGE = 128
 
+# Calls profiled one at a time are further apart than this on the card;
+# the passes of one call overlap (a dependent launch) or follow within it
+SPAN_GAP_US = 5.0
+
 # SASS opcodes by the pipe that runs them (the rest: uniform datapath,
 # control, conversions), for the opcode counts of K1 and K2
 SASS_PIPES = {
@@ -189,9 +193,10 @@ def profiled_span_ms(fn, fragment: str, launches: int, calls: int = 10):
     ``fragment``, from the first one's start to the last one's end (so a
     launch that starts early and waits for the one before it counts once):
     the median over ``calls`` calls, each waited for, that each launch
-    ``launches`` of them (the median, because the profiler's first call can
-    start a dependent launch milliseconds late); None where the profiler
-    saw none."""
+    ``launches`` of them.  A call's kernels are those that overlap or follow
+    each other within ``SPAN_GAP_US``; calls whose kernels the profiler did
+    not all record, or recorded late, are left out.  None where fewer than
+    half the calls were whole."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -203,10 +208,16 @@ def profiled_span_ms(fn, fragment: str, launches: int, calls: int = 10):
     kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and fragment in e.name)
-    if len(kernels) != calls * launches:
+    groups = []  # [first start, last end, kernels]
+    for start, end in kernels:
+        if groups and start <= groups[-1][1] + SPAN_GAP_US:
+            groups[-1][1] = max(groups[-1][1], end)
+            groups[-1][2] += 1
+        else:
+            groups.append([start, end, 1])
+    spans = sorted(end - start for start, end, n in groups if n == launches)
+    if 2 * len(spans) < calls:
         return None
-    spans = sorted(max(end for _, end in kernels[i:i + launches]) - kernels[i][0]
-                   for i in range(0, len(kernels), launches))
     return spans[len(spans) // 2] / 1e3
 
 
