@@ -1,13 +1,17 @@
-"""The main path's inputs: one mainnet-shape phase0 epoch of signed blocks.
+"""The main path's inputs: one mainnet-shape epoch of signed blocks.
 
 The port's counterpart of the reference bench's input builders
 (``bench.py``: ``build_state``, ``_install_real_pubkeys``,
 ``_attestations_for``, ``_build_epoch_blocks``).  The main path is one
-phase0 epoch at ``n`` validators: a state at epoch 2 whose previous epoch
-holds a full complement of pending attestations, then 32 signed blocks,
+epoch at ``n`` validators: a state at epoch 2, then 32 signed blocks,
 each carrying the aggregates of every committee of the two preceding
 slots (3,904 in all on the mainnet preset), the last of which crosses the
-epoch boundary and so runs the epoch transition.
+epoch boundary and so runs the epoch transition.  On phase0 the state's
+previous epoch holds a full complement of pending attestations; on the
+altair lineage its participation flags and inactivity scores start at
+zero, its sync committees are drawn from the registry as
+``upgrade_to_altair`` draws them, and every block also carries a sync
+aggregate of the whole 512-member committee (``with_sync=True``).
 
 All signing goes through the native C++ ``Sign``; every validator gets a
 real pubkey (cycled from the 8192 deterministic test keys), so
@@ -27,15 +31,21 @@ from consensus_specs_tpu_torch.ssz.node import (
     subtree_fill_to_contents,
     uint_to_leaf,
 )
-from consensus_specs_tpu_torch.testing.keys import NUM_KEYS, privkeys, pubkeys
+from consensus_specs_tpu_torch.testing.keys import (
+    NUM_KEYS,
+    privkeys,
+    pubkey_to_privkey,
+    pubkeys,
+)
 
 FAR_FUTURE = 2**64 - 1
 
 
 def build_state(spec, n: int):
-    """Synthetic mainnet-shape phase0 state at epoch 2: n active validators
-    with a full previous epoch of maximum-participation pending
-    attestations."""
+    """Synthetic mainnet-shape state at epoch 2: n active validators with
+    a full previous epoch of maximum-participation pending attestations
+    (phase0), or zeroed participation flags and inactivity scores sized to
+    the registry (the altair lineage)."""
     state = spec.BeaconState()
     state.slot = 2 * spec.SLOTS_PER_EPOCH
 
@@ -55,6 +65,15 @@ def build_state(spec, n: int):
         state.balances, np.full(n, int(spec.MAX_EFFECTIVE_BALANCE), dtype=np.int64)
     )
 
+    if "previous_epoch_attestations" not in type(state)._field_names:
+        # altair+: participation flags instead of attestations; size the
+        # per-validator lists to the registry
+        zeros8 = np.zeros(n, dtype=np.uint8)
+        bulk.set_packed_uint8_from_numpy(state.previous_epoch_participation, zeros8)
+        bulk.set_packed_uint8_from_numpy(state.current_epoch_participation, zeros8)
+        bulk.set_packed_uint64_from_numpy(
+            state.inactivity_scores, np.zeros(n, dtype=np.int64))
+        return state
     prev_epoch = spec.get_previous_epoch(state)
     start_slot = spec.compute_start_slot_at_epoch(prev_epoch)
     committees_per_slot = int(spec.get_committee_count_per_slot(state, prev_epoch))
@@ -102,10 +121,20 @@ def install_real_pubkeys(spec, state, n: int) -> None:
         BranchNode(contents, uint_to_leaf(n)))
 
 
+def install_sync_committees(spec, state) -> None:
+    """Real sync committees drawn from the (real-pubkey) registry, the way
+    ``upgrade_to_altair`` seeds them (altair/fork.md)."""
+    state.current_sync_committee = spec.get_next_sync_committee(state)
+    state.next_sync_committee = spec.get_next_sync_committee(state)
+
+
 def build_main_path_state(spec, n: int):
-    """``build_state`` with real pubkeys: the pre-state of the main path."""
+    """``build_state`` with real pubkeys, and on the altair lineage real
+    sync committees: the pre-state of the main path."""
     state = build_state(spec, n)
     install_real_pubkeys(spec, state, n)
+    if hasattr(state, "current_sync_committee"):
+        install_sync_committees(spec, state)
     return state
 
 
@@ -149,21 +178,26 @@ def attestations_for(spec, st, block_slot: int) -> list:
     return atts
 
 
-def build_epoch_blocks(spec, state) -> list:
+def build_epoch_blocks(spec, state, with_sync: bool = False) -> list:
     """Construct and sign one epoch of full blocks from ``state`` (which is
-    left untouched).  Verification is off while constructing; the caller's
-    ``bls.bls_active`` is restored afterwards."""
+    left untouched).  ``with_sync`` adds a fully participating sync
+    aggregate to every block (altair+).  Verification is off while
+    constructing; the caller's ``bls.bls_active`` is restored afterwards."""
     was_active = bls.bls_active
     bls.bls_active = False
     try:
-        return _build_epoch_blocks(spec, state)
+        return _build_epoch_blocks(spec, state, with_sync)
     finally:
         bls.bls_active = was_active
 
 
-def _build_epoch_blocks(spec, state):
+def _build_epoch_blocks(spec, state, with_sync: bool):
     build_st = state.copy()
     signed_blocks = []
+    sync_sks = None
+    if with_sync:
+        sync_sks = [pubkey_to_privkey[bytes(pk)]
+                    for pk in state.current_sync_committee.pubkeys]
     for _ in range(int(spec.SLOTS_PER_EPOCH)):
         slot = int(build_st.slot) + 1
         stub = build_st.copy()
@@ -181,6 +215,17 @@ def _build_epoch_blocks(spec, state):
                 epoch, spec.get_domain(build_st, spec.DOMAIN_RANDAO, epoch)))
         for att in attestations_for(spec, stub, slot):
             block.body.attestations.append(att)
+        if with_sync:
+            # process_sync_aggregate verifies over the previous slot's
+            # block root (altair/beacon-chain.md:536-543) = parent_root
+            domain = spec.get_domain(
+                build_st, spec.DOMAIN_SYNC_COMMITTEE,
+                spec.compute_epoch_at_slot(slot - 1))
+            root = spec.compute_signing_root(spec.Root(block.parent_root), domain)
+            block.body.sync_aggregate = spec.SyncAggregate(
+                sync_committee_bits=[True] * int(spec.SYNC_COMMITTEE_SIZE),
+                sync_committee_signature=_aggregate_sign(sync_sks, root),
+            )
 
         spec.process_slots(build_st, slot)
         spec.process_block(build_st, block)

@@ -22,9 +22,9 @@ setup.py:741-764, without the markdown round-trip):
 
 Port of ``consensus_specs_tpu/specs/builder.py``.  A spec is built for one
 torch device (``get_spec(fork, preset, device=None)``; None is the CUDA
-card): its epoch substitutions run their tensor work there.  This slice
-builds the phase0 fork; the altair installs (participation kernel, sync
-aggregate index, altair epoch kernel) come with ROADMAP queue A, item 6.
+card): its epoch substitutions run their tensor work there.  The port
+builds the phase0 -> altair ladder; bellatrix and later forks come with
+ROADMAP queue A, item 6.
 """
 from __future__ import annotations
 
@@ -78,12 +78,14 @@ from consensus_specs_tpu_torch.ssz.types import (
 SRC_DIR = Path(__file__).parent / "src"
 
 # Fork topology: each fork execs its parent chain's sources then its own.
-# This slice of the port carries phase0 only.
+# The port carries phase0 and altair so far.
 FORK_PARENTS = {
     "phase0": None,
+    "altair": "phase0",
 }
 
-FORK_ORDER = ("phase0",)
+# Mainline order (kept for callers that iterate the production ladder).
+FORK_ORDER = ("phase0", "altair")
 
 
 def fork_chain(fork: str) -> Tuple[str, ...]:
@@ -327,7 +329,12 @@ def _install_optimizations(g: Dict[str, Any], device: torch.device) -> None:
 
     _install_registry_vectorization(g)
     _install_attestation_pubkey_column(g)
-    _install_phase0_epoch_kernel(g, device)
+    if g["fork"] == "phase0":
+        _install_phase0_epoch_kernel(g, device)
+    else:
+        _install_altair_epoch_kernel(g)
+        _install_altair_attestation_kernel(g)
+        _install_sync_aggregate_index(g)
     _install_deferred_block_verification(g)
 
 
@@ -358,6 +365,200 @@ def _install_attestation_pubkey_column(g: Dict[str, Any]) -> None:
     _swap(g, "is_valid_indexed_attestation", is_valid_indexed_attestation)
 
 
+import contextvars as _contextvars
+
+# block-scoped numpy mirror of the altair participation lists: the spec's
+# per-index flag writes are single-item tree path copies (~25k per mainnet
+# block); within one process_block the mirror absorbs them and ONE packed
+# write per touched list materializes the result
+_part_scope: "_contextvars.ContextVar" = _contextvars.ContextVar(
+    "altair_participation_scope", default=None)
+
+
+class _ParticipationBlockScope:
+    def __init__(self, state):
+        from consensus_specs_tpu_torch.ssz import bulk
+
+        self._bulk = bulk
+        self.prev = bulk.packed_uint8_to_numpy(state.previous_epoch_participation)
+        self.cur = bulk.packed_uint8_to_numpy(state.current_epoch_participation)
+        self.n0_prev = len(self.prev)
+        self.n0_cur = len(self.cur)
+        self.dirty_prev = False
+        self.dirty_cur = False
+        # per-block base-reward column (effective balances and the
+        # per-increment reward are constant within a block)
+        self.base_rewards = None
+
+    def flush(self, state) -> None:
+        """Materialize mirror updates.  Entries appended DURING the block
+        (process_deposit) live only in the view and are untouched by flag
+        updates (a just-deposited validator cannot attest), so the merged
+        result is mirror[:n0] + view[n0:]."""
+        import numpy as np
+
+        for dirty, mirror, n0, name in (
+            (self.dirty_prev, self.prev, self.n0_prev,
+             "previous_epoch_participation"),
+            (self.dirty_cur, self.cur, self.n0_cur,
+             "current_epoch_participation"),
+        ):
+            if not dirty:
+                continue
+            view = getattr(state, name)
+            if len(view) > n0:
+                tail = self._bulk.packed_uint8_to_numpy(view)[n0:]
+                mirror = np.concatenate([mirror, tail])
+            self._bulk.set_packed_uint8_from_numpy(view, mirror)
+
+
+def _install_altair_attestation_kernel(g: Dict[str, Any]) -> None:
+    """Vectorize altair's process_attestation flag loop (the per-block hot
+    path: ~25k single-index participation writes through the tree on a
+    full mainnet block).  Validation asserts are transcribed verbatim;
+    inside a process_block participation scope the flag updates and the
+    proposer-reward numerator are computed on the numpy mirror with EXACT
+    integer arithmetic; outside a scope the sequential original runs.
+    Failure contract matches the deferred-BLS wrapper: a raising block
+    leaves state partially applied and callers discard it.  Differential
+    tests: tests/test_torch_spec_altair.py (roots equal to the
+    reference's after every block)."""
+    import numpy as np
+
+    from consensus_specs_tpu_torch.ops import epoch as epoch_ops
+
+    orig = g["process_attestation"]
+
+    def process_attestation(state, attestation):
+        scope = _part_scope.get()
+        if scope is None:
+            return orig(state, attestation)
+        data = attestation.data
+        assert data.target.epoch in (
+            g["get_previous_epoch"](state), g["get_current_epoch"](state))
+        assert data.target.epoch == g["compute_epoch_at_slot"](data.slot)
+        assert (data.slot + g["MIN_ATTESTATION_INCLUSION_DELAY"]
+                <= state.slot <= data.slot + g["SLOTS_PER_EPOCH"])
+        assert data.index < g["get_committee_count_per_slot"](
+            state, data.target.epoch)
+        committee = g["get_beacon_committee"](state, data.slot, data.index)
+        assert len(attestation.aggregation_bits) == len(committee)
+
+        participation_flag_indices = g[
+            "get_attestation_participation_flag_indices"](
+            state, data, state.slot - data.slot)
+
+        assert g["is_valid_indexed_attestation"](
+            state, g["get_indexed_attestation"](state, attestation))
+
+        if data.target.epoch == g["get_current_epoch"](state):
+            mirror = scope.cur
+            scope.dirty_cur = True
+        else:
+            mirror = scope.prev
+            scope.dirty_prev = True
+
+        members = np.fromiter(
+            g["get_attesting_indices"](state, data, attestation.aggregation_bits),
+            dtype=np.int64)
+        # exact get_base_reward column: effective // EBI * per-increment,
+        # computed once per block scope
+        if scope.base_rewards is None:
+            cols = epoch_ops.registry_columns(state)
+            per_incr = int(g["get_base_reward_per_increment"](state))
+            ebi = int(g["EFFECTIVE_BALANCE_INCREMENT"])
+            scope.base_rewards = cols["effective_balance"] // ebi * per_incr
+        base_rewards = scope.base_rewards
+
+        proposer_reward_numerator = 0
+        for flag_index, weight in enumerate(g["PARTICIPATION_FLAG_WEIGHTS"]):
+            if flag_index not in participation_flag_indices:
+                continue
+            bit = np.uint8(1 << flag_index)
+            newly = members[(mirror[members] & bit) == 0]
+            if len(newly) == 0:
+                continue
+            mirror[newly] |= bit
+            proposer_reward_numerator += int(
+                np.sum(base_rewards[newly], dtype=np.uint64)) * int(weight)
+
+        proposer_reward_denominator = (
+            (g["WEIGHT_DENOMINATOR"] - g["PROPOSER_WEIGHT"])
+            * g["WEIGHT_DENOMINATOR"] // g["PROPOSER_WEIGHT"])
+        proposer_reward = g["Gwei"](
+            proposer_reward_numerator // int(proposer_reward_denominator))
+        g["increase_balance"](
+            state, g["get_beacon_proposer_index"](state), proposer_reward)
+
+    _swap(g, "process_attestation", process_attestation)
+
+
+def _install_sync_aggregate_index(g: Dict[str, Any]) -> None:
+    """Replace process_sync_aggregate's committee-index resolution — the
+    spec scans ALL validators and runs a linear ``list.index`` per
+    committee seat (altair/beacon-chain.md:503-504), an O(registry)
+    full-view walk per block — with the registry-root-cached pubkey
+    reverse index (first-occurrence semantics identical to list.index).
+    Signature verification and the reward arithmetic stay the spec's own
+    lines.  Differential: tests/test_torch_spec_altair.py."""
+    def process_sync_aggregate(state, sync_aggregate):
+        from consensus_specs_tpu_torch.ssz import bulk
+
+        Slot = g["Slot"]
+        Gwei = g["Gwei"]
+        committee_pubkeys = state.current_sync_committee.pubkeys
+        participant_pubkeys = [
+            pubkey for pubkey, bit
+            in zip(committee_pubkeys, sync_aggregate.sync_committee_bits)
+            if bit]
+        previous_slot = max(state.slot, Slot(1)) - Slot(1)
+        domain = g["get_domain"](
+            state, g["DOMAIN_SYNC_COMMITTEE"],
+            g["compute_epoch_at_slot"](previous_slot))
+        signing_root = g["compute_signing_root"](
+            g["get_block_root_at_slot"](state, previous_slot), domain)
+        assert g["eth_fast_aggregate_verify"](
+            participant_pubkeys, signing_root,
+            sync_aggregate.sync_committee_signature)
+
+        total_active_increments = (
+            g["get_total_active_balance"](state)
+            // g["EFFECTIVE_BALANCE_INCREMENT"])
+        total_base_rewards = Gwei(
+            g["get_base_reward_per_increment"](state) * total_active_increments)
+        max_participant_rewards = Gwei(
+            total_base_rewards * g["SYNC_REWARD_WEIGHT"]
+            // g["WEIGHT_DENOMINATOR"] // g["SLOTS_PER_EPOCH"])
+        participant_reward = Gwei(
+            max_participant_rewards // g["SYNC_COMMITTEE_SIZE"])
+        proposer_reward = Gwei(
+            participant_reward * g["PROPOSER_WEIGHT"]
+            // (g["WEIGHT_DENOMINATOR"] - g["PROPOSER_WEIGHT"]))
+
+        index_of = bulk.cached_pubkey_index(state.validators)
+        try:
+            committee_indices = [
+                g["ValidatorIndex"](index_of[bytes(pubkey)])
+                for pubkey in committee_pubkeys]
+        except KeyError:
+            # exception-type parity with the spec's list.index on a
+            # pubkey missing from the registry
+            raise ValueError("sync committee pubkey is not in list") from None
+        for participant_index, participation_bit in zip(
+                committee_indices, sync_aggregate.sync_committee_bits):
+            if participation_bit:
+                g["increase_balance"](
+                    state, participant_index, participant_reward)
+                g["increase_balance"](
+                    state, g["get_beacon_proposer_index"](state),
+                    proposer_reward)
+            else:
+                g["decrease_balance"](
+                    state, participant_index, participant_reward)
+
+    _swap(g, "process_sync_aggregate", process_sync_aggregate)
+
+
 def _install_deferred_block_verification(g: Dict[str, Any]) -> None:
     """Batch a block's aggregate-signature checks into one pairing product.
 
@@ -382,14 +583,47 @@ def _install_deferred_block_verification(g: Dict[str, Any]) -> None:
     from consensus_specs_tpu_torch.crypto import bls as bls_mod
 
     orig = g["process_block"]
+    # only the forks whose process_attestation consumes the scope (the
+    # altair lineage)
+    with_participation = g["fork"] != "phase0"
 
     def process_block(state, block):
-        with bls_mod.deferred_fast_aggregate_verify():
-            orig(state, block)
+        scope = token = None
+        if with_participation:
+            scope = _ParticipationBlockScope(state)
+            token = _part_scope.set(scope)
+        try:
+            with bls_mod.deferred_fast_aggregate_verify():
+                orig(state, block)
+            if scope is not None:
+                # success only: a raising block leaves state partially
+                # applied per the contract above, and flushing optimistic
+                # flag updates would widen the divergence
+                scope.flush(state)
+        finally:
+            if token is not None:
+                _part_scope.reset(token)
 
     process_block.__doc__ = orig.__doc__
     process_block.__wrapped__ = orig
     g["process_block"] = process_block
+
+
+def _install_altair_epoch_kernel(g: Dict[str, Any]) -> None:
+    """Post-altair epoch vectorization: flag-based rewards, inactivity
+    scores, participation rotation (ops/epoch_altair.py).  Differential
+    tests: tests/test_torch_epoch_altair.py."""
+    from consensus_specs_tpu_torch.ops import epoch_altair
+
+    proxy = _LiveSpecProxy(g)
+    _swap(g, "process_justification_and_finalization",
+          lambda state: epoch_altair.justification_and_finalization(proxy, state))
+    _swap(g, "process_rewards_and_penalties",
+          lambda state: epoch_altair.rewards_and_penalties(proxy, state))
+    _swap(g, "process_inactivity_updates",
+          lambda state: epoch_altair.inactivity_updates(proxy, state))
+    _swap(g, "process_participation_flag_updates",
+          lambda state: epoch_altair.participation_flag_updates(proxy, state))
 
 
 def _swap(g: Dict[str, Any], name: str, fn) -> None:
@@ -403,6 +637,7 @@ def _swap(g: Dict[str, Any], name: str, fn) -> None:
 # constant
 _SLASHING_MULT = {
     "phase0": "PROPORTIONAL_SLASHING_MULTIPLIER",
+    "altair": "PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR",
 }
 
 

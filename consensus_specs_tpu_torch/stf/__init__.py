@@ -1,4 +1,4 @@
-"""Batched block-path transition engine, phase0 lineage.
+"""Batched block-path transition engine, phase0 and altair lineages.
 
 ``apply_signed_blocks(spec, state, signed_blocks)`` replays signed blocks
 with one BLS multi-pairing per block (cross-block triple dedup), whole-
@@ -12,6 +12,9 @@ Layers:
   permutation, and the attestation-plan memo the epoch scans probe;
 * ``verify``       — per-block signature batch: preflattened
   ``BatchFastAggregateVerify`` entries, verified-triple memo, bisection;
+* ``sync``         — altair-lineage sync aggregates: seat rows memoized
+  per sync period, the signature folded into the block batch, rewards as
+  net per-validator deltas;
 * ``slot_roots``   — spec-identical ``process_slots`` with dirty bulk
   balance subtrees reduced on the spec's device (K2 on CUDA);
 * ``columns``      — root-keyed resident validator-state columns and the
@@ -22,9 +25,6 @@ Layers:
   phases execute (``pipeline.ENABLED = False`` opts out);
 * ``engine``       — the optimistic fast path + exact-spec replay
   fallback that makes failure behavior literally the spec's.
-
-The altair lineage (``sync`` and the participation-flag attestation
-path) comes with the port's altair fork (ROADMAP queue A, item 6).
 """
 from .attestations import FastPathViolation
 from .engine import apply_signed_blocks, reset_stats, stats

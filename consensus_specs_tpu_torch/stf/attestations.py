@@ -21,8 +21,7 @@ full mainnet block.  This module resolves the WHOLE block at once:
 Every structural rule of ``process_attestation`` is checked here in spec
 order; any violation raises ``FastPathViolation`` and the engine replays
 the block through the literal spec path, which re-raises the spec's exact
-exception (stf/engine.py in the reference; the engine comes to the port
-with ROADMAP queue A, item 8).
+exception (stf/engine.py).
 """
 from __future__ import annotations
 
@@ -251,7 +250,7 @@ def reset_caches() -> None:
     proposer walks, attestation plans, affine matrices, sync-committee
     seat rows, resident columns) plus the native decompression cache —
     bench cold-start control and test isolation."""
-    from . import columns
+    from . import columns, sync
 
     from consensus_specs_tpu_torch.ops import epoch
 
@@ -263,8 +262,7 @@ def reset_caches() -> None:
     _PLAN_CTX_LOOKUP.clear()
     _AFFINE_MATRIX_CACHE._store.clear()
     reset_stats()
-    # the sync-committee seat rows reset here too once stf.sync is ported
-    # (ROADMAP queue A, item 8)
+    sync.reset_caches()
     columns.reset_caches()
     epoch.reset_caches()  # matching-scan memo: same cold-start control
     try:

@@ -27,9 +27,9 @@ This module keeps those columns *resident*:
   numpy mirror demoted to a staged view per the HD01 contract).
 * **device residency** — ``device_buffer`` uploads the epoch kernels'
   registry-derived inputs to a torch device once per root and serves the
-  same tensor to every later consumer of that version.  One card, so no
-  mesh.  The participation-column upload (``device_column``) comes back
-  with the altair epoch kernel (ROADMAP queue A, item 6).
+  same tensor to every later consumer of that version; ``device_column``
+  does the same for a participation column (the altair flag-deltas
+  pass's input).  One card, so no mesh.
 
 Insertions ride the block cache transaction (``staging.note_insert``)
 like every other fast-path memo: a failed block's flush is popped with
@@ -233,6 +233,16 @@ def device_buffer(key: tuple, build_host, device):
     stats["device_misses"] += 1
     buf = upload(build_host(), torch.device(device))
     return _bounded_put(_DEVICE_BUFFERS, _DEVICE_BUFFERS_MAX, key, buf)
+
+
+def device_column(state, current: bool, device):
+    """The resident participation column as a uint8 tensor on ``device``,
+    uploaded once per column version and shared by every later consumer
+    of that root (the altair flag-deltas pass's input)."""
+    view = _participation_view(state, current)
+    host = _entry_for(view)["host"]
+    return device_buffer((bytes(view.hash_tree_root()), "participation"),
+                         lambda: host, device)
 
 
 def reset_caches() -> None:

@@ -1,9 +1,8 @@
 """Batched block-transition engine: ``apply_signed_blocks``.
 
-Port of ``consensus_specs_tpu/stf/engine.py``, phase0 lineage.  The
-altair lineage (sync aggregates, participation flags) comes with the
-port's altair fork; until then every other fork replays through the
-literal spec.
+Port of ``consensus_specs_tpu/stf/engine.py``: the phase0 lineage and
+the altair lineage (participation flags, sync aggregates).  Every other
+fork replays through the literal spec.
 
 Replays a sequence of signed blocks through the spec state transition with
 three fused optimizations:
@@ -16,7 +15,9 @@ three fused optimizations:
    resolve off the cached whole-epoch shuffle permutation as numpy
    gathers, participation counts reduce through ``ops/segment.py``
    (stf/attestations.py), and only the spec-mandated tree writes
-   (pending-attestation appends) touch the state;
+   (pending-attestation appends, or one packed participation write per
+   dirtied column and the sync aggregate's net balance deltas) touch the
+   state;
 3. **cheap per-slot roots** — ``process_slots`` runs with dirty packed
    balance subtrees routed through the resident merkle path on the
    spec's device (stf/slot_roots.py; K2 on CUDA).
@@ -29,7 +30,8 @@ literal ``spec.state_transition``, which raises the spec's exact exception
 type/message at the spec's exact point and leaves the state exactly as
 poisoned as the sequential path would have.  Valid blocks therefore land
 byte-identical post-states, and invalid blocks are indistinguishable from
-the spec path (pinned by tests/test_torch_stf_engine.py).  The one
+the spec path (pinned by tests/test_torch_stf_engine.py and
+tests/test_torch_stf_engine_altair.py).  The one
 exception is a failing kernel (``ops.sha256.KernelError``): the block's
 pre-state is restored and the error raised to the caller, with no replay
 and no breaker accounting, so a broken device path never hides behind the
@@ -60,7 +62,7 @@ from consensus_specs_tpu_torch import faults, telemetry, tracing
 from consensus_specs_tpu_torch.ops.sha256 import KernelError
 from consensus_specs_tpu_torch.telemetry import histogram, recorder, timeline
 
-from . import pipeline, slot_roots, staging, verify
+from . import columns, pipeline, slot_roots, staging, sync, verify
 from .attestations import (
     FastPathViolation,
     affine_rows,
@@ -69,10 +71,10 @@ from .attestations import (
 )
 
 # the fork families the fast path covers: phase0's pending-attestation
-# shape.  The altair lineage (participation flags + sync aggregates)
-# joins with the port's altair fork; every other fork replays through
-# the literal spec.
-FAST_FORKS = ("phase0",)
+# shape, and the altair lineage (participation flags + sync aggregates).
+# bellatrix (the execution payload) and later forks replay through the
+# literal spec until the port builds them.
+FAST_FORKS = ("phase0", "altair")
 
 # circuit breaker: after BREAKER_THRESHOLD CONSECUTIVE unexpected
 # fast-path errors (not FastPathViolations — those are the contract
@@ -103,6 +105,8 @@ _SITE_OPERATIONS = faults.site("stf.engine.operations")
 _SITE_STATE_ROOT = faults.site("stf.engine.state_root")
 _SITE_NATIVE_GATE = faults.site("stf.engine.native_gate")
 _SITE_CACHE_COMMIT = faults.site("stf.engine.cache_commit")
+_SITE_MIRROR_READ = faults.site("stf.engine.mirror_read")
+_SITE_MIRROR_FLUSH = faults.site("stf.engine.mirror_flush")
 
 stats = {
     "fast_blocks": 0,
@@ -116,10 +120,13 @@ stats = {
     "sig_verify_s": 0.0,
     "attestation_apply_s": 0.0,
     # attestation_apply_s attributed: plan resolution (memo probes + cold
-    # committee gathers) and the state-application loop — a regression
-    # names its phase instead of moving one opaque number
+    # committee gathers), the state-application loop, and the
+    # participation mirror flush — a regression names its phase instead
+    # of moving one opaque number
     "resolve_s": 0.0,
     "apply_s": 0.0,
+    "mirror_flush_s": 0.0,
+    "sync_apply_s": 0.0,
     "slot_roots_s": 0.0,
     "other_s": 0.0,
 }
@@ -260,7 +267,8 @@ def _apply_one(spec, state, signed_block, validate_result: bool) -> None:
         if not _fast_path_ready(spec):
             # uncovered forks keep their own kernel substitutions + the
             # facade's deferred per-block batch
-            raise FastPathViolation("fast path covers phase0 + native BLS")
+            raise FastPathViolation(
+                "fast path covers phase0/altair + native BLS")
         with staging.block_transaction():
             _fast_transition(spec, state, signed_block, validate_result,
                              link=link)
@@ -289,7 +297,7 @@ def _apply_one(spec, state, signed_block, validate_result: bool) -> None:
 # phase attribution captured per block by the flight recorder (deltas of
 # the cumulative stats above, plus the plan/h2c cache movement)
 _PHASE_KEYS = ("slot_roots_s", "sig_verify_s", "attestation_apply_s",
-               "other_s")
+               "sync_apply_s", "other_s")
 
 
 def _h2c_stats():
@@ -338,8 +346,8 @@ def _block_delta(snap: dict) -> dict:
 def _collect_block(spec, state, signed_block, validate_result: bool,
                    spec_keys, link=None) -> tuple:
     """One block's host phases: slot advancement, header/RANDAO/eth1,
-    operations with the vectorized attestation path — every state
-    mutation of the fast path, with the block's signature
+    operations with the vectorized attestation path, sync aggregate —
+    every state mutation of the fast path, with the block's signature
     checks collected (not settled) as materialized batch entries.
     Returns ``(entries, keys, t_host_done)``; both settlement styles
     (serial ``_fast_transition``, pipelined ``_begin_block``) build on
@@ -353,6 +361,7 @@ def _collect_block(spec, state, signed_block, validate_result: bool,
     from consensus_specs_tpu_torch.crypto import bls
 
     block = signed_block.message
+    altair_lineage = spec.fork != "phase0"
     t0 = time.perf_counter()
     with timeline.span("host/slot_roots", link=link, slot=int(block.slot)):
         slot_roots.process_slots(spec, state, block.slot)
@@ -377,9 +386,10 @@ def _collect_block(spec, state, signed_block, validate_result: bool,
         _proposer_entry(spec, state, signed_block, collect)
     t2 = time.perf_counter()
 
-    # process_block shape of phase0 (phase0.py:1149-1154): header/RANDAO/
-    # attestations run the vectorized or collect-don't-verify variants
-    # below; the remaining operations are the spec's own functions
+    # process_block shape of the block's own fork (phase0.py:1149-1154,
+    # altair.py:405-410): header/RANDAO/attestations/sync aggregate run
+    # the vectorized or collect-don't-verify variants below; the
+    # remaining operations are the spec's own functions
     with timeline.span("host/operations", link=link):
         _header(spec, state, block)
         _randao_collect(spec, state, block.body, collect, bls_on)
@@ -389,12 +399,20 @@ def _collect_block(spec, state, signed_block, validate_result: bool,
         # operations (slashings, deposits, exits) belong to other_s so a
         # regression in e.g. process_deposit localizes honestly
         apply_before = stats["attestation_apply_s"]
-        _operations(spec, state, block.body, collect, bls_on)
+        _operations(spec, state, block.body, collect, bls_on, altair_lineage)
         t4 = time.perf_counter()
     non_attestation_ops = (t4 - t3) - (stats["attestation_apply_s"] - apply_before)
+    if altair_lineage:
+        with timeline.span("host/sync_aggregate", link=link):
+            sync.process_sync_aggregate(
+                spec, state, block.body.sync_aggregate, collect, bls_on)
+    t4s = time.perf_counter()
+    stats["sync_apply_s"] += t4s - t4
+    if altair_lineage:
+        histogram.observe("sync_apply", t4s - t4)
     stats["sig_verify_s"] += t2 - t1
     stats["other_s"] += (t3 - t2) + non_attestation_ops
-    return entries, keys, t4
+    return entries, keys, t4s
 
 
 def _fast_transition(spec, state, signed_block, validate_result: bool,
@@ -672,7 +690,8 @@ def _apply_pipelined(spec, state, signed_blocks, validate_result: bool):
         if not ready:
             i = settle_then_replay(
                 "fast_path_unready",
-                FastPathViolation("fast path covers phase0 + native BLS"),
+                FastPathViolation(
+                    "fast path covers phase0/altair + native BLS"),
                 rec)
             continue
         spec_keys = (frozenset().union(*(p.keys_set for p in window))
@@ -762,9 +781,10 @@ def _randao_collect(spec, state, body, collect, bls_on) -> None:
     _SITE_RANDAO()  # post-mix-write: rollback must restore randao_mixes
 
 
-def _operations(spec, state, body, collect, bls_on) -> None:
-    """process_operations (phase0.py:1196-1208) with the attestation loop
-    replaced by the whole-block vectorized path."""
+def _operations(spec, state, body, collect, bls_on, altair_lineage) -> None:
+    """process_operations (phase0.py:1196-1208; altair inherits the same
+    dispatch shape) with the attestation loop replaced by the whole-block
+    vectorized path of the block's fork family."""
     assert len(body.deposits) == min(
         spec.MAX_DEPOSITS,
         state.eth1_data.deposit_count - state.eth1_deposit_index)
@@ -774,23 +794,30 @@ def _operations(spec, state, body, collect, bls_on) -> None:
     for operation in body.attester_slashings:
         spec.process_attester_slashing(state, operation)
     _SITE_OPERATIONS()  # mid-operations: slashings applied, rest pending
-    _attestations(spec, state, body.attestations, collect, bls_on)
+    _attestations(spec, state, body.attestations, collect, bls_on,
+                  altair_lineage)
     for operation in body.deposits:
         spec.process_deposit(state, operation)
     for operation in body.voluntary_exits:
         spec.process_voluntary_exit(state, operation)
 
 
-def _attestations(spec, state, attestations, collect, bls_on) -> None:
+def _attestations(spec, state, attestations, collect, bls_on,
+                  altair_lineage) -> None:
     """The block's process_attestation loop, vectorized: one resolution
-    pass, one bulk attester-set reduction, then the pending-attestation
-    appends (phase0.py:1249-1275) and one signature entry per
-    aggregate."""
+    pass, one bulk attester-set reduction, then the fork family's state
+    application — pending-attestation appends (phase0.py:1249-1275) or
+    participation-flag scatter (altair.py:413-446) — and one signature
+    entry per aggregate."""
     if len(attestations) == 0:
         return
     t0 = time.perf_counter()
     try:
-        _attestations_inner(spec, state, attestations, collect, bls_on)
+        if altair_lineage:
+            _attestations_inner_altair(spec, state, attestations, collect,
+                                       bls_on)
+        else:
+            _attestations_inner(spec, state, attestations, collect, bls_on)
     finally:
         dt = time.perf_counter() - t0
         stats["attestation_apply_s"] += dt
@@ -858,6 +885,173 @@ def _attestations_inner(spec, state, attestations, collect, bls_on) -> None:
                     lambda a=attesters: affine_rows(validators, a),
                     signing_root, bytes(att.signature))
     stats["apply_s"] += time.perf_counter() - t1
+
+
+class _FlagMaskContext:
+    """Per-block context for ``get_attestation_participation_flag_indices``
+    (altair.py:303-330) as a bit mask, with the spec's ``assert
+    is_matching_source`` mapped to the replay contract.  Everything
+    loop-invariant — the justified checkpoints, the spec constants, and
+    the (at most two) target-epoch block roots and (typically two)
+    per-slot head roots — is computed once per block instead of once per
+    attestation; the matching-target/head short-circuits and the
+    ``get_block_root*`` raise points are preserved (memoized lookups
+    raise at the same first-use point the spec's per-attestation call
+    would, and a successful lookup would have re-succeeded identically)."""
+
+    __slots__ = ("spec", "state", "state_slot", "cur_justified",
+                 "prev_justified", "sqrt_spe", "spe", "min_delay",
+                 "src_bit", "tgt_bit", "head_bit", "_target_roots",
+                 "_head_roots")
+
+    def __init__(self, spec, state, resolver):
+        self.spec = spec
+        self.state = state
+        self.state_slot = resolver.state_slot
+        self.cur_justified = state.current_justified_checkpoint
+        self.prev_justified = state.previous_justified_checkpoint
+        self.sqrt_spe = int(spec.integer_squareroot(spec.SLOTS_PER_EPOCH))
+        self.spe = int(spec.SLOTS_PER_EPOCH)
+        self.min_delay = int(spec.MIN_ATTESTATION_INCLUSION_DELAY)
+        self.src_bit = 1 << int(spec.TIMELY_SOURCE_FLAG_INDEX)
+        self.tgt_bit = 1 << int(spec.TIMELY_TARGET_FLAG_INDEX)
+        self.head_bit = 1 << int(spec.TIMELY_HEAD_FLAG_INDEX)
+        self._target_roots: dict = {}
+        self._head_roots: dict = {}
+
+    def mask(self, data, target_epoch: int, is_current: bool) -> int:
+        justified = self.cur_justified if is_current else self.prev_justified
+        if data.source != justified:
+            raise FastPathViolation("source != justified checkpoint")
+        slot = int(data.slot)
+        inclusion_delay = self.state_slot - slot
+        target_root = self._target_roots.get(target_epoch)
+        if target_root is None:
+            target_root = self._target_roots[target_epoch] = bytes(
+                self.spec.get_block_root(self.state, data.target.epoch))
+        is_matching_target = bytes(data.target.root) == target_root
+        if is_matching_target:
+            head_root = self._head_roots.get(slot)
+            if head_root is None:
+                head_root = self._head_roots[slot] = bytes(
+                    self.spec.get_block_root_at_slot(self.state, data.slot))
+            is_matching_head = bytes(data.beacon_block_root) == head_root
+        else:
+            is_matching_head = False
+        mask = 0
+        if inclusion_delay <= self.sqrt_spe:
+            mask |= self.src_bit
+        if is_matching_target and inclusion_delay <= self.spe:
+            mask |= self.tgt_bit
+        if is_matching_head and inclusion_delay == self.min_delay:
+            mask |= self.head_bit
+        return mask
+
+
+def _attestations_inner_altair(spec, state, attestations, collect, bls_on) -> None:
+    """The altair-lineage process_attestation loop (altair.py:413-446),
+    vectorized: the same plan-cached whole-block resolution as phase0,
+    then per attestation a participation-flag OR-scatter on a staged view
+    of the resident epoch participation column (stf/columns.py — a dict
+    probe after the first block, not a tree walk), the proposer-reward
+    numerator as one masked increment sum per newly-set flag, and one
+    signature entry per aggregate.  Staged views flush as ONE packed
+    write per dirtied column (re-registered under the column's new root,
+    so the NEXT block's read hits residency) and the proposer reward
+    lands as one balance write (per-attestation floor division preserved
+    — the spec divides before each increase)."""
+    import numpy as np
+
+    from consensus_specs_tpu_torch.ops.epoch import registry_columns
+
+    t_res0 = time.perf_counter()
+    resolver = resolve_block_attestations(spec, state)
+    plans = resolver.resolve(attestations)
+    t_res1 = time.perf_counter()
+    stats["resolve_s"] += t_res1 - t_res0
+    tracing.count("stf.attestations", len(plans))
+
+    proposer_index = beacon_proposer_index(spec, state)
+    current_epoch = resolver.current_epoch
+    validators = state.validators
+    registry_root = bytes(validators.hash_tree_root())
+    domains = _attester_domains(spec, state, resolver) if bls_on else None
+
+    # participation mirrors: staged views of the resident columns, read
+    # lazily once per block, written back once per dirtied column after
+    # the loop (deposits append only later in process_operations, so the
+    # column length is stable here).  ``resident`` keeps the store's
+    # readonly original so a column whose bits were all already set (a
+    # block of re-carried aggregates) skips the flush AND the subtree
+    # re-hash its packed write would force.
+    staged, resident = {}, {}
+
+    def column_for(is_current):
+        col = staged.get(is_current)
+        if col is None:
+            resident[is_current] = columns.participation_column(
+                state, is_current)
+            # probed between read and use: a corrupted mirror must be
+            # caught by the post-state root check, never flushed silently
+            col = staged[is_current] = _SITE_MIRROR_READ(
+                columns.staged_view(state, is_current))
+        return col
+
+    # exact get_base_reward column: effective // increment * per-increment
+    # (both constant within a block — effective balances only move at the
+    # epoch boundary)
+    increments = (registry_columns(state)["effective_balance"]
+                  // int(spec.EFFECTIVE_BALANCE_INCREMENT))
+    per_increment = int(spec.get_base_reward_per_increment(state))
+    weights = [int(w) for w in spec.PARTICIPATION_FLAG_WEIGHTS]
+    weight_denominator = int(spec.WEIGHT_DENOMINATOR)
+    proposer_weight = int(spec.PROPOSER_WEIGHT)
+    denominator = ((weight_denominator - proposer_weight)
+                   * weight_denominator // proposer_weight)
+    proposer_reward_total = 0
+    flag_ctx = _FlagMaskContext(spec, state, resolver)
+
+    for att, plan in zip(attestations, plans):
+        data = att.data
+        attesters = plan.attesters
+        is_current = plan.target_epoch == current_epoch
+        mask = flag_ctx.mask(data, plan.target_epoch, is_current)
+        column = column_for(is_current)
+        held = column[attesters]
+        numerator = 0
+        for flag_index, weight in enumerate(weights):
+            bit = 1 << flag_index
+            if not mask & bit:
+                continue
+            newly = attesters[(held & bit) == 0]
+            if len(newly):
+                numerator += int(
+                    np.sum(increments[newly], dtype=np.uint64)) * weight
+        column[attesters] = held | np.uint8(mask)
+        # the spec floors the division per attestation, then increases the
+        # proposer balance; summing the floored rewards is exact
+        proposer_reward_total += numerator * per_increment // denominator
+        if bls_on:
+            signing_root = hashlib.sha256(
+                plan.data_root + domains[plan.target_epoch]).digest()
+            collect(registry_root + attesters.tobytes(), len(attesters),
+                    lambda a=attesters: affine_rows(validators, a),
+                    signing_root, bytes(att.signature))
+    t_apply = time.perf_counter()
+    stats["apply_s"] += t_apply - t_res1
+
+    _SITE_MIRROR_FLUSH()  # pre-flush: mirrors dirty, state still clean
+    for is_current, col in staged.items():
+        if not np.array_equal(col, resident[is_current]):
+            columns.flush(state, is_current, col)
+    if proposer_reward_total:
+        # Gwei() raises on uint64 overflow exactly where the spec's
+        # sequential += would have (increments are non-negative)
+        state.balances[proposer_index] = spec.Gwei(
+            int(state.balances[proposer_index]) + proposer_reward_total)
+    dt_flush = time.perf_counter() - t_apply
+    stats["mirror_flush_s"] += dt_flush
+    histogram.observe("mirror_flush", dt_flush)
 
 
 # -- telemetry ----------------------------------------------------------------

@@ -2,8 +2,8 @@
 
 * a subprocess with ``jax`` blocked and an import blocker for
   ``consensus_specs_tpu`` imports every module of the port and builds the
-  minimal phase0 spec on the CPU (a subprocess, because the test session
-  itself imports jax);
+  minimal phase0 and altair specs on the CPU (a subprocess, because the
+  test session itself imports jax);
 * a static scan of the port's sources finds no such import;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
@@ -46,6 +46,12 @@ from consensus_specs_tpu_torch.specs import get_spec
 
 spec = get_spec("phase0", "minimal", device="cpu")
 assert spec.SLOTS_PER_EPOCH == 8
+# the altair build runs its installs (epoch_altair, the participation
+# scope, the sync aggregate index) and the engine knows the fork
+altair = get_spec("altair", "minimal", device="cpu")
+assert altair.phase0 is spec and altair.SYNC_COMMITTEE_SIZE == 32
+from consensus_specs_tpu_torch.stf import engine
+assert "altair" in engine.FAST_FORKS
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))
