@@ -39,6 +39,22 @@ seconds:
    hashed under the ``"torch"`` backend equals its hashlib root; then the
    inputs of those K1 launches are held against the plain version and
    timed, K1's path shapes for its kernels entry.
+5. the altair main path: one mainnet-preset altair epoch at 400,000
+   validators with BLS on — real pubkeys and sync committees, 32 signed
+   blocks, each with the two preceding slots' aggregates and a sync
+   aggregate of the whole 512-member committee — through
+   ``spec.state_transition`` on a CUDA-built altair spec.  The literal
+   altair path launches neither kernel; the boundary block, replayed on a
+   ``device="cpu"`` spec, must give the same root.
+5b. the altair engine: the same blocks through ``stf.apply_signed_blocks``
+   from cold engine caches.  Every block fast, the root phase 5's, K1 not
+   launched, K2 launched for every resident per-slot root (each block's
+   sync rewards leave the balances subtree unhashed at its state-root
+   check).  Prints the engine's phases, one resident root split into the
+   balance walk, the upload and K2 beside the host's incremental root of
+   the same list, and the epoch's flag deltas with
+   ``epoch_altair.DEVICE_COLUMNS`` on (torch on the card) and off (the
+   host loop), which must give equal balances.
 
 Every comparison is exact (tolerance 0): digests and roots are integers
 and bytes.  Then one JSON line of the kernels (launches on the path that
@@ -51,6 +67,7 @@ fails before any phase.
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
 import subprocess
@@ -111,6 +128,36 @@ def _phase(name: str):
             return False
 
     return _Timer()
+
+
+class GcPauses:
+    """Seconds the cyclic garbage collector held the process, its
+    collections and how many of them were full (generation 2), while the
+    context is open: a host pause of the engine's timed run that none of
+    its own phase counters names."""
+
+    def __enter__(self):
+        self.seconds, self.collections, self.full = 0.0, 0, 0
+        self._t0 = None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self.collections += 1
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+    def __exit__(self, exc_type, exc, tb):
+        gc.callbacks.remove(self._note)
+        return False
+
+    def __str__(self):
+        return (f"gc pauses {self.seconds:.3f} s in {self.collections} "
+                f"collections ({self.full} full)")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -719,8 +766,9 @@ def phase_engine(main_path: dict) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        stf.apply_signed_blocks(spec, state, blocks, True)
-        torch.cuda.synchronize()
+        with GcPauses() as pauses:
+            stf.apply_signed_blocks(spec, state, blocks, True)
+            torch.cuda.synchronize()
         t_end = time.perf_counter()
         counters = tracing.report()["counters"]
     finally:
@@ -741,7 +789,7 @@ def phase_engine(main_path: dict) -> dict:
           f"{verify.stats['batches']} ({verify.stats['entries']} entries, "
           f"{verify.stats['memo_hits']} memo hits), pipeline overlap "
           f"{pipeline.stats['overlap_s']:.3f} s, await "
-          f"{pipeline.stats['await_s']:.3f} s", flush=True)
+          f"{pipeline.stats['await_s']:.3f} s; {pauses}", flush=True)
     print(f"engine: fused epoch updates {fused}, stf.resident_slot_root "
           f"{resident}, K2 launches {k2_launches}, K1 launches {k1_launches}; "
           f"root {root.hex()}", flush=True)
@@ -765,7 +813,7 @@ def phase_engine(main_path: dict) -> dict:
         raise AssertionError(f"K2 launched {k2_launches} times for {fused} "
                              f"epoch and {resident} slot roots")
     return {"k2_launches": k2_launches, "k1_launches": k1_launches,
-            "seconds": t_end - t0, **phases}
+            "seconds": t_end - t0, "gc_s": pauses.seconds, **phases}
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -833,6 +881,238 @@ def phase_ssz_hasher(spec, post) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
+# -- phase 5 ----------------------------------------------------------------
+
+
+def phase_altair(n_validators: int) -> dict:
+    from consensus_specs_tpu_torch import scenario
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.specs import get_spec
+
+    spec = get_spec("altair", "mainnet", device="cuda")
+    t0 = time.perf_counter()
+    state = scenario.build_main_path_state(spec, n_validators)
+    t_state = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = scenario.build_epoch_blocks(spec, state, with_sync=True)
+    t_blocks = time.perf_counter() - t0
+    n_atts = sum(len(b.message.body.attestations) for b in blocks)
+    seats = [sum(b.message.body.sync_aggregate.sync_committee_bits) for b in blocks]
+    print(f"set-up: altair state with sync committees {t_state:.3f} s, "
+          f"{len(blocks)} signed blocks with {n_atts} aggregate attestations "
+          f"and {len(blocks)} sync aggregates {t_blocks:.3f} s", flush=True)
+    if len(blocks) != int(spec.SLOTS_PER_EPOCH):
+        raise AssertionError("expected one epoch of blocks")
+    if set(seats) != {int(spec.SYNC_COMMITTEE_SIZE)}:
+        raise AssertionError(f"sync aggregates not fully set: {sorted(set(seats))}")
+
+    bls.bls_active = True
+    post = state.copy()
+    pre_last = None
+    sha256.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, signed in enumerate(blocks):
+        if i == len(blocks) - 1:
+            pre_last = post.copy()
+            t_last = time.perf_counter()
+        spec.state_transition(post, signed, True)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    t_path = t_end - t0
+    k2_launches = sha256.counts["u64_list_root"]
+    k1_launches = sha256.counts["sha256_block64"]
+    root = bytes(post.hash_tree_root())
+    print(f"altair literal path: {len(blocks)} blocks in {t_path:.3f} s (last "
+          f"block, with the epoch transition: {t_end - t_last:.3f} s); K2 "
+          f"launches {k2_launches}, K1 launches {k1_launches}; root "
+          f"{root.hex()}", flush=True)
+    if k2_launches or k1_launches:
+        raise AssertionError(f"the literal altair path launched K2 {k2_launches} "
+                             f"and K1 {k1_launches} times, not 0")
+
+    cpu_spec = get_spec("altair", "mainnet", device="cpu")
+    cpu_state = cpu_spec.BeaconState.decode_bytes(bytes(pre_last.encode_bytes()))
+    cpu_block = cpu_spec.SignedBeaconBlock.decode_bytes(
+        bytes(blocks[-1].encode_bytes()))
+    t0 = time.perf_counter()
+    cpu_spec.state_transition(cpu_state, cpu_block, True)
+    t_cpu = time.perf_counter() - t0
+    cpu_root = bytes(cpu_state.hash_tree_root())
+    print(f"altair cpu leg: boundary block in {t_cpu:.3f} s; root "
+          f"{cpu_root.hex()}", flush=True)
+    if cpu_root != root:
+        raise AssertionError("altair cuda and cpu post-state roots differ")
+    return {"spec": spec, "pre": state, "blocks": blocks, "post": post,
+            "root": root, "seconds": t_path, "k2_launches": k2_launches}
+
+
+# -- phase 5b ---------------------------------------------------------------
+
+ALTAIR_ENGINE_PHASES = ENGINE_PHASES + ("sync_apply_s", "mirror_flush_s")
+
+
+def resident_root_split(spec, state) -> dict:
+    """One resident root of a balances list that a block's sync rewards
+    left partly dirty (one write to each committee member's balance and
+    the proposer's, as a block makes them), split into the balance walk,
+    the upload and K2, beside the host's incremental root of the same
+    list and its full root from a fresh bulk write."""
+    from consensus_specs_tpu_torch.ops import merkle_resident
+    from consensus_specs_tpu_torch.ssz import bulk
+    from consensus_specs_tpu_torch.stf import attestations, sync
+
+    state.balances.hash_tree_root()
+    touched = sorted({int(r) for r in sync.sync_committee_rows(spec, state)}
+                     | {int(attestations.beacon_proposer_index(spec, state))})
+    # the same writes on two copies: each gets its own dirty path nodes
+    st, host = state.copy(), state.copy()
+    for view in (st.balances, host.balances):
+        for i in touched:
+            view[i] = spec.Gwei(int(view[i]) + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    col = bulk.packed_uint64_to_numpy(st.balances)
+    t1 = time.perf_counter()
+    resident = merkle_resident.ResidentPackedU64List(
+        type(st.balances).LENGTH, device="cuda")
+    resident.upload(col)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    contents_root = resident.contents_subtree_root()
+    t3 = time.perf_counter()
+    merkle_resident.memoize_packed_u64_contents_root(st.balances, contents_root)
+    t4 = time.perf_counter()
+    host_root = bytes(host.balances.hash_tree_root())
+    t5 = time.perf_counter()
+    if bytes(st.balances.hash_tree_root()) != host_root:
+        raise AssertionError("the resident balances root differs from the host's")
+    full = st.copy()
+    bulk.set_packed_uint64_from_numpy(full.balances, col)
+    t6 = time.perf_counter()
+    full_root = bytes(full.balances.hash_tree_root())
+    t7 = time.perf_counter()
+    if full_root != host_root:
+        raise AssertionError("the full host balances root differs")
+    split = {"walk_s": t1 - t0, "upload_s": t2 - t1, "k2_s": t3 - t2,
+             "host_incremental_s": t5 - t4, "host_full_s": t7 - t6,
+             "writes": len(touched)}
+    print(f"one resident root after {len(touched)} balance writes: walk "
+          f"{split['walk_s']:.4f} s, upload {split['upload_s']:.4f} s, K2 "
+          f"(with its readback) {split['k2_s']:.4f} s; the host's incremental "
+          f"root of the same list {split['host_incremental_s']:.4f} s, its full "
+          f"root after a bulk write {split['host_full_s']:.4f} s", flush=True)
+    return split
+
+
+def flag_deltas_on_off(spec, post) -> dict:
+    """The epoch's flag rewards and penalties (``rewards_and_penalties`` on
+    the epoch's post-state, whose previous epoch holds the blocks'
+    participation) with ``DEVICE_COLUMNS`` off (the host loop) and on
+    (torch on the card): equal balances."""
+    from consensus_specs_tpu_torch.ops import epoch_altair
+    from consensus_specs_tpu_torch.ssz import bulk
+
+    times = {}
+    balances = {}
+    for on in (False, True, True, False, False, True):
+        st = post.copy()
+        epoch_altair.DEVICE_COLUMNS = on
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch_altair.rewards_and_penalties(spec, st)
+            torch.cuda.synchronize()
+            times.setdefault(on, []).append(time.perf_counter() - t0)
+        finally:
+            epoch_altair.DEVICE_COLUMNS = False
+        balances[on] = bulk.packed_uint64_to_numpy(st.balances)
+    if not np.array_equal(balances[False], balances[True]):
+        raise AssertionError("flag deltas on the card and on the host differ")
+    if np.array_equal(balances[False], bulk.packed_uint64_to_numpy(post.balances)):
+        raise AssertionError("the flag deltas changed no balance")
+    print(f"epoch flag deltas (rewards_and_penalties, in turns): "
+          f"DEVICE_COLUMNS off "
+          + " / ".join(f"{t:.4f}" for t in times[False]) + " s, on "
+          + " / ".join(f"{t:.4f}" for t in times[True])
+          + " s (its first call uploads the columns); equal balances",
+          flush=True)
+    return {"host_s": times[False], "device_s": times[True]}
+
+
+def phase_altair_engine(altair: dict) -> dict:
+    from consensus_specs_tpu_torch import stf, tracing
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.ops import merkle_resident, sha256
+    from consensus_specs_tpu_torch.stf import attestations, pipeline, verify
+
+    spec, blocks = altair["spec"], altair["blocks"]
+    state = altair["pre"].copy()
+    stf.reset_stats()
+    verify.reset_memo()
+    attestations.reset_caches()
+    bls.bls_active = True
+    tracing.enable()
+    tracing.reset()
+    merkle_resident.stats["fused_epoch_updates"] = 0
+    sha256.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with GcPauses() as pauses:
+            stf.apply_signed_blocks(spec, state, blocks, True)
+            torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counters = tracing.report()["counters"]
+    finally:
+        tracing.disable()
+    k2_launches = sha256.counts["u64_list_root"]
+    k1_launches = sha256.counts["sha256_block64"]
+    fused = merkle_resident.stats["fused_epoch_updates"]
+    resident = counters.get("stf.resident_slot_root", 0)
+    root = bytes(state.hash_tree_root())
+    phases = {k: stf.stats[k] for k in ALTAIR_ENGINE_PHASES}
+    print(f"altair engine: {len(blocks)} blocks in {t_end - t0:.3f} s (literal "
+          f"path in phase 5: {altair['seconds']:.3f} s); "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+          + f"; fast blocks {stf.stats['fast_blocks']}, replayed "
+          f"{stf.stats['replayed_blocks']} {stf.stats['replay_reasons']}, "
+          f"breaker trips {stf.stats['breaker_trips']}, native degraded "
+          f"{verify.stats['native_degraded']}; signature batches "
+          f"{verify.stats['batches']} ({verify.stats['entries']} entries, "
+          f"{verify.stats['memo_hits']} memo hits), sync aggregates "
+          f"{counters.get('stf.sync_aggregate', 0)}, pipeline overlap "
+          f"{pipeline.stats['overlap_s']:.3f} s, await "
+          f"{pipeline.stats['await_s']:.3f} s; {pauses}", flush=True)
+    print(f"altair engine: stf.resident_slot_root {resident}, fused epoch "
+          f"updates {fused}, K2 launches {k2_launches}, K1 launches "
+          f"{k1_launches}; root {root.hex()}", flush=True)
+    if (stf.stats["fast_blocks"] != len(blocks)
+            or stf.stats["replayed_blocks"] != 0
+            or stf.stats["replay_reasons"] != {}
+            or stf.stats["breaker_trips"] != 0
+            or verify.stats["native_degraded"] != 0):
+        raise AssertionError(f"the altair engine left its fast path: {stf.stats}")
+    if root != altair["root"]:
+        raise AssertionError("altair engine root differs from the literal path's")
+    if k1_launches != 0:
+        raise AssertionError(f"the altair engine launched K1 {k1_launches} times")
+    if resident < 1:
+        raise AssertionError("the altair engine took no resident slot root")
+    n_chunks = 1 << ((len(state.balances) + 3) // 4 - 1).bit_length()
+    if k2_launches != sha256.k2_plan(n_chunks)[0] * resident:
+        raise AssertionError(f"K2 launched {k2_launches} times for {resident} "
+                             "resident slot roots")
+
+    split = resident_root_split(spec, altair["pre"])
+    flags = flag_deltas_on_off(spec, altair["post"])
+    return {"k2_launches": k2_launches, "k1_launches": k1_launches,
+            "resident": resident, "seconds": t_end - t0,
+            "gc_s": pauses.seconds, **phases,
+            "split": split, "flags": flags}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -855,6 +1135,10 @@ def main(argv=None) -> int:
         engine = phase_engine(main_path)
     with _phase("4 K1 as SSZ hasher"):
         ssz = phase_ssz_hasher(main_path["spec"], main_path["post"])
+    with _phase(f"5 altair main path at {N_VALIDATORS} validators"):
+        altair = phase_altair(N_VALIDATORS)
+    with _phase(f"5b altair engine at {N_VALIDATORS} validators"):
+        altair_engine = phase_altair_engine(altair)
 
     k1_entry = {
         "name": "sha256_block64",
@@ -881,6 +1165,8 @@ def main(argv=None) -> int:
         # resident per-slot root; the literal path's own count beside it
         "launches": engine["k2_launches"],
         "launches_literal_path": main_path["k2_launches"],
+        # the altair engine's run (phase 5b): one resident root a block
+        "launches_altair_engine": altair_engine["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
