@@ -740,21 +740,19 @@ ENGINE_PHASES = ("slot_roots_s", "sig_verify_s", "attestation_apply_s",
                  "other_s")
 
 
-def phase_engine(main_path: dict) -> dict:
+def run_engine(label: str, spec, state, blocks, literal: dict,
+               phase_keys: tuple) -> dict:
+    """The engine on ``blocks`` from cold caches (it pays for its own
+    committee geometry, device buffers and signature checks), with the
+    tracing counters on and the kernels' counts zeroed just before it.
+    Prints its phases and counts, raises unless every block took the fast
+    path, K1 did not launch and the root is the literal path's, and
+    returns the run's counts and seconds."""
     from consensus_specs_tpu_torch import stf, tracing
     from consensus_specs_tpu_torch.crypto import bls
     from consensus_specs_tpu_torch.ops import merkle_resident, sha256
-    from consensus_specs_tpu_torch.ssz import bulk
     from consensus_specs_tpu_torch.stf import attestations, pipeline, verify
 
-    spec, blocks = main_path["spec"], main_path["blocks"]
-    state = main_path["pre"].copy()
-    # a state as a loader hands it over: the balances bulk-written, their
-    # subtree unhashed, so the first slot root takes the resident route
-    bulk.set_packed_uint64_from_numpy(
-        state.balances, bulk.packed_uint64_to_numpy(state.balances))
-    # cold engine caches: the engine pays for its own committee geometry,
-    # device buffers and signature checks
     stf.reset_stats()
     verify.reset_memo()
     attestations.reset_caches()
@@ -769,51 +767,69 @@ def phase_engine(main_path: dict) -> dict:
         with GcPauses() as pauses:
             stf.apply_signed_blocks(spec, state, blocks, True)
             torch.cuda.synchronize()
-        t_end = time.perf_counter()
+        seconds = time.perf_counter() - t0
         counters = tracing.report()["counters"]
     finally:
         tracing.disable()
-    k2_launches = sha256.counts["u64_list_root"]
-    k1_launches = sha256.counts["sha256_block64"]
-    fused = merkle_resident.stats["fused_epoch_updates"]
-    resident = counters.get("stf.resident_slot_root", 0)
+    run = {"k2_launches": sha256.counts["u64_list_root"],
+           "k1_launches": sha256.counts["sha256_block64"],
+           "fused": merkle_resident.stats["fused_epoch_updates"],
+           "resident": counters.get("stf.resident_slot_root", 0),
+           "seconds": seconds, "gc_s": pauses.seconds,
+           **{k: stf.stats[k] for k in phase_keys}}
     root = bytes(state.hash_tree_root())
-    phases = {k: stf.stats[k] for k in ENGINE_PHASES}
-    print(f"engine: {len(blocks)} blocks in {t_end - t0:.3f} s (literal path "
-          f"in phase 3: {main_path['seconds']:.3f} s); "
-          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+    print(f"{label}: {len(blocks)} blocks in {seconds:.3f} s (literal path: "
+          f"{literal['seconds']:.3f} s); "
+          + ", ".join(f"{k} {run[k]:.3f}" for k in phase_keys)
           + f"; fast blocks {stf.stats['fast_blocks']}, replayed "
           f"{stf.stats['replayed_blocks']} {stf.stats['replay_reasons']}, "
           f"breaker trips {stf.stats['breaker_trips']}, native degraded "
           f"{verify.stats['native_degraded']}; signature batches "
           f"{verify.stats['batches']} ({verify.stats['entries']} entries, "
-          f"{verify.stats['memo_hits']} memo hits), pipeline overlap "
+          f"{verify.stats['memo_hits']} memo hits), sync aggregates "
+          f"{counters.get('stf.sync_aggregate', 0)}, pipeline overlap "
           f"{pipeline.stats['overlap_s']:.3f} s, await "
           f"{pipeline.stats['await_s']:.3f} s; {pauses}", flush=True)
-    print(f"engine: fused epoch updates {fused}, stf.resident_slot_root "
-          f"{resident}, K2 launches {k2_launches}, K1 launches {k1_launches}; "
-          f"root {root.hex()}", flush=True)
+    print(f"{label}: fused epoch updates {run['fused']}, "
+          f"stf.resident_slot_root {run['resident']}, K2 launches "
+          f"{run['k2_launches']}, K1 launches {run['k1_launches']}; root "
+          f"{root.hex()}", flush=True)
     if (stf.stats["fast_blocks"] != len(blocks)
             or stf.stats["replayed_blocks"] != 0
             or stf.stats["replay_reasons"] != {}
             or stf.stats["breaker_trips"] != 0
             or verify.stats["native_degraded"] != 0):
-        raise AssertionError(f"the engine left its fast path: {stf.stats}")
-    if root != main_path["root"]:
-        raise AssertionError("engine root differs from the literal path's")
-    if fused != 1:
-        raise AssertionError(f"fused epoch update ran {fused} times, not once")
-    if k1_launches != 0:
-        raise AssertionError(f"the engine launched K1 {k1_launches} times")
-    if resident != 1:
-        raise AssertionError(f"the resident slot root fired {resident} times "
-                             "on bulk-written balances, not once")
+        raise AssertionError(f"{label} left its fast path: {stf.stats}")
+    if root != literal["root"]:
+        raise AssertionError(f"{label} root differs from the literal path's")
+    if run["k1_launches"] != 0:
+        raise AssertionError(f"{label} launched K1 {run['k1_launches']} times")
     n_chunks = 1 << ((len(state.balances) + 3) // 4 - 1).bit_length()
-    if k2_launches != sha256.k2_plan(n_chunks)[0] * (fused + resident):
-        raise AssertionError(f"K2 launched {k2_launches} times for {fused} "
-                             f"epoch and {resident} slot roots")
-    return {"k2_launches": k2_launches, "k1_launches": k1_launches,
-            "seconds": t_end - t0, "gc_s": pauses.seconds, **phases}
+    if run["k2_launches"] != sha256.k2_plan(n_chunks)[0] * (
+            run["fused"] + run["resident"]):
+        raise AssertionError(f"K2 launched {run['k2_launches']} times for "
+                             f"{run['fused']} epoch and {run['resident']} "
+                             "slot roots")
+    return run
+
+
+def phase_engine(main_path: dict) -> dict:
+    from consensus_specs_tpu_torch.ssz import bulk
+
+    state = main_path["pre"].copy()
+    # a state as a loader hands it over: the balances bulk-written, their
+    # subtree unhashed, so the first slot root takes the resident route
+    bulk.set_packed_uint64_from_numpy(
+        state.balances, bulk.packed_uint64_to_numpy(state.balances))
+    run = run_engine("engine", main_path["spec"], state, main_path["blocks"],
+                     main_path, ENGINE_PHASES)
+    if run["fused"] != 1:
+        raise AssertionError(f"fused epoch update ran {run['fused']} times, "
+                             "not once")
+    if run["resident"] != 1:
+        raise AssertionError(f"the resident slot root fired {run['resident']} "
+                             "times on bulk-written balances, not once")
+    return run
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -1042,75 +1058,17 @@ def flag_deltas_on_off(spec, post) -> dict:
 
 
 def phase_altair_engine(altair: dict) -> dict:
-    from consensus_specs_tpu_torch import stf, tracing
-    from consensus_specs_tpu_torch.crypto import bls
-    from consensus_specs_tpu_torch.ops import merkle_resident, sha256
-    from consensus_specs_tpu_torch.stf import attestations, pipeline, verify
-
-    spec, blocks = altair["spec"], altair["blocks"]
-    state = altair["pre"].copy()
-    stf.reset_stats()
-    verify.reset_memo()
-    attestations.reset_caches()
-    bls.bls_active = True
-    tracing.enable()
-    tracing.reset()
-    merkle_resident.stats["fused_epoch_updates"] = 0
-    sha256.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        with GcPauses() as pauses:
-            stf.apply_signed_blocks(spec, state, blocks, True)
-            torch.cuda.synchronize()
-        t_end = time.perf_counter()
-        counters = tracing.report()["counters"]
-    finally:
-        tracing.disable()
-    k2_launches = sha256.counts["u64_list_root"]
-    k1_launches = sha256.counts["sha256_block64"]
-    fused = merkle_resident.stats["fused_epoch_updates"]
-    resident = counters.get("stf.resident_slot_root", 0)
-    root = bytes(state.hash_tree_root())
-    phases = {k: stf.stats[k] for k in ALTAIR_ENGINE_PHASES}
-    print(f"altair engine: {len(blocks)} blocks in {t_end - t0:.3f} s (literal "
-          f"path in phase 5: {altair['seconds']:.3f} s); "
-          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
-          + f"; fast blocks {stf.stats['fast_blocks']}, replayed "
-          f"{stf.stats['replayed_blocks']} {stf.stats['replay_reasons']}, "
-          f"breaker trips {stf.stats['breaker_trips']}, native degraded "
-          f"{verify.stats['native_degraded']}; signature batches "
-          f"{verify.stats['batches']} ({verify.stats['entries']} entries, "
-          f"{verify.stats['memo_hits']} memo hits), sync aggregates "
-          f"{counters.get('stf.sync_aggregate', 0)}, pipeline overlap "
-          f"{pipeline.stats['overlap_s']:.3f} s, await "
-          f"{pipeline.stats['await_s']:.3f} s; {pauses}", flush=True)
-    print(f"altair engine: stf.resident_slot_root {resident}, fused epoch "
-          f"updates {fused}, K2 launches {k2_launches}, K1 launches "
-          f"{k1_launches}; root {root.hex()}", flush=True)
-    if (stf.stats["fast_blocks"] != len(blocks)
-            or stf.stats["replayed_blocks"] != 0
-            or stf.stats["replay_reasons"] != {}
-            or stf.stats["breaker_trips"] != 0
-            or verify.stats["native_degraded"] != 0):
-        raise AssertionError(f"the altair engine left its fast path: {stf.stats}")
-    if root != altair["root"]:
-        raise AssertionError("altair engine root differs from the literal path's")
-    if k1_launches != 0:
-        raise AssertionError(f"the altair engine launched K1 {k1_launches} times")
-    if resident < 1:
-        raise AssertionError("the altair engine took no resident slot root")
-    n_chunks = 1 << ((len(state.balances) + 3) // 4 - 1).bit_length()
-    if k2_launches != sha256.k2_plan(n_chunks)[0] * resident:
-        raise AssertionError(f"K2 launched {k2_launches} times for {resident} "
-                             "resident slot roots")
-
-    split = resident_root_split(spec, altair["pre"])
-    flags = flag_deltas_on_off(spec, altair["post"])
-    return {"k2_launches": k2_launches, "k1_launches": k1_launches,
-            "resident": resident, "seconds": t_end - t0,
-            "gc_s": pauses.seconds, **phases,
-            "split": split, "flags": flags}
+    run = run_engine("altair engine", altair["spec"], altair["pre"].copy(),
+                     altair["blocks"], altair, ALTAIR_ENGINE_PHASES)
+    # each block's sync rewards leave the balances subtree unhashed at its
+    # state-root check; altair has no fused epoch update
+    if run["resident"] < 1 or run["fused"] != 0:
+        raise AssertionError(f"the altair engine took {run['resident']} "
+                             f"resident slot roots and {run['fused']} fused "
+                             "epoch updates")
+    run["split"] = resident_root_split(altair["spec"], altair["pre"])
+    run["flags"] = flag_deltas_on_off(altair["spec"], altair["post"])
+    return run
 
 
 def main(argv=None) -> int:

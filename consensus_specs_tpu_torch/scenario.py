@@ -121,20 +121,15 @@ def install_real_pubkeys(spec, state, n: int) -> None:
         BranchNode(contents, uint_to_leaf(n)))
 
 
-def install_sync_committees(spec, state) -> None:
-    """Real sync committees drawn from the (real-pubkey) registry, the way
-    ``upgrade_to_altair`` seeds them (altair/fork.md)."""
-    state.current_sync_committee = spec.get_next_sync_committee(state)
-    state.next_sync_committee = spec.get_next_sync_committee(state)
-
-
 def build_main_path_state(spec, n: int):
     """``build_state`` with real pubkeys, and on the altair lineage real
-    sync committees: the pre-state of the main path."""
+    sync committees drawn from that registry the way ``upgrade_to_altair``
+    seeds them (altair/fork.md): the pre-state of the main path."""
     state = build_state(spec, n)
     install_real_pubkeys(spec, state, n)
     if hasattr(state, "current_sync_committee"):
-        install_sync_committees(spec, state)
+        state.current_sync_committee = spec.get_next_sync_committee(state)
+        state.next_sync_committee = spec.get_next_sync_committee(state)
     return state
 
 

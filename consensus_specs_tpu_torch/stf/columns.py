@@ -240,9 +240,8 @@ def device_column(state, current: bool, device):
     uploaded once per column version and shared by every later consumer
     of that root (the altair flag-deltas pass's input)."""
     view = _participation_view(state, current)
-    host = _entry_for(view)["host"]
     return device_buffer((bytes(view.hash_tree_root()), "participation"),
-                         lambda: host, device)
+                         lambda: _entry_for(view)["host"], device)
 
 
 def reset_caches() -> None:
