@@ -10,9 +10,12 @@ Layer map:
   config/     presets (mainnet/minimal) and runtime configs
   crypto/bls/ BLS12-381: pure-Python oracle and the native C++ backend
   ops/        SHA-256 (hand-written CUDA kernel + plain torch version),
-              phase0 epoch deltas, the fused balance update + merkle root
-  stf/        committee geometry and resident columns the epoch path reads
-  specs/      the phase0 spec module built over the port's kernels
+              phase0 epoch deltas, the fused balance update + merkle root,
+              the altair epoch functions
+  stf/        the batched block engine (phase0 and altair lineages), its
+              committee geometry, sync aggregates and resident columns
+  specs/      the phase0 and altair spec modules built over the port's
+              kernels
   testing/    deterministic test keys
   scenario    the main-path input builder (state + signed blocks)
 

@@ -2,7 +2,8 @@
 
 ``get_spec(fork, preset, device=None)`` returns a module-like spec object
 exposing the executable spec API for that fork×preset, with its device
-work on ``device`` (None: the CUDA card).  This slice builds phase0.
+work on ``device`` (None: the CUDA card).  The port builds phase0 and
+altair.
 """
 from .builder import available_forks, get_spec
 
