@@ -25,8 +25,8 @@ seconds:
    ``spec.state_transition`` on a CUDA-built spec, the last of which
    crosses the epoch boundary.  The fused epoch update must run once and
    launch K2 (one or two passes) and K1 not at all; the last block,
-   replayed from its serialized pre-state on a ``device="cpu"`` spec,
-   must give the same post-state root.
+   replayed from its pre-state on a ``device="cpu"`` spec, must give the
+   same post-state root.
 3b. the engine at 400,000 validators: the same 32 blocks through the
    batched block engine, ``stf.apply_signed_blocks``, on a copy of phase
    3's pre-state whose balances were bulk-written again (unhashed, as a
@@ -55,8 +55,24 @@ seconds:
    the same list, and the epoch's flag deltas with
    ``epoch_altair.DEVICE_COLUMNS`` on (torch on the card) and off (the
    host loop), which must give equal balances.
+6. the bellatrix main path: phase 5's epoch on a bellatrix spec, past the
+   merge, each block also carrying an execution payload of 150 random
+   transactions (~90 KB) that extends the one before; literally on a
+   CUDA-built spec, no kernel launched, the boundary block on a
+   ``device="cpu"`` spec with the same root.  Phases 3 and 5's states are
+   freed before it.
+6b. the bellatrix engine on the same blocks from cold caches: every block
+   fast, the root phase 6's, K1 not launched, K2 launched for every
+   resident per-slot root, one sync aggregate a block; prints the engine's
+   phases, the payload step's seconds (inside ``other_s``) and GC pauses.
+6c. capella on the card: a minimal-preset capella epoch with one full
+   withdrawal and one BLS-to-execution change on a CUDA-built spec, equal
+   to a CPU-built spec's root after every block; the engine replays every
+   capella block literally, with the same root.
 
-Every comparison is exact (tolerance 0): digests and roots are integers
+The CPU legs take the boundary block's pre-state by its backing tree (no
+serialize round trip) and hash on the host (a CPU spec keeps the host
+hashing path), so they are independent of K2.  Every comparison is exact (tolerance 0): digests and roots are integers
 and bytes.  Then one JSON line of the kernels (launches on the path that
 drives each, error against the plain version, times on that path's
 shapes, the bound), the
@@ -662,6 +678,16 @@ def phase_k2(n_validators: int, seed: int) -> dict:
             "per_level_route_ms": route_ms}
 
 
+def cpu_leg_state(cpu_spec, pre_last):
+    """The boundary block's pre-state as a state of the CPU-built spec,
+    taken by its backing tree.  A serialize and decode round trip of a
+    400k-validator state cost about a minute a phase on the card's host;
+    the tree it shares holds no root from the card (the literal paths
+    launch no kernel before the boundary block), so the CPU leg's
+    transition and hashing of the boundary block stay the host's own."""
+    return cpu_spec.BeaconState.view_from_backing(pre_last.get_backing())
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 
@@ -716,9 +742,9 @@ def phase_main_path(n_validators: int) -> dict:
         raise AssertionError(f"the epoch transition launched K1 {k1_launches} "
                              "times; its root goes through K2")
 
-    # the CPU leg: the boundary block from its serialized pre-state
+    # the CPU leg: the boundary block on a CPU-built spec
     cpu_spec = get_spec("phase0", "mainnet", device="cpu")
-    cpu_state = cpu_spec.BeaconState.decode_bytes(bytes(pre_last.encode_bytes()))
+    cpu_state = cpu_leg_state(cpu_spec, pre_last)
     cpu_block = cpu_spec.SignedBeaconBlock.decode_bytes(
         bytes(blocks[-1].encode_bytes()))
     t0 = time.perf_counter()
@@ -775,6 +801,7 @@ def run_engine(label: str, spec, state, blocks, literal: dict,
            "k1_launches": sha256.counts["sha256_block64"],
            "fused": merkle_resident.stats["fused_epoch_updates"],
            "resident": counters.get("stf.resident_slot_root", 0),
+           "sync": counters.get("stf.sync_aggregate", 0),
            "seconds": seconds, "gc_s": pauses.seconds,
            **{k: stf.stats[k] for k in phase_keys}}
     root = bytes(state.hash_tree_root())
@@ -787,7 +814,7 @@ def run_engine(label: str, spec, state, blocks, literal: dict,
           f"{verify.stats['native_degraded']}; signature batches "
           f"{verify.stats['batches']} ({verify.stats['entries']} entries, "
           f"{verify.stats['memo_hits']} memo hits), sync aggregates "
-          f"{counters.get('stf.sync_aggregate', 0)}, pipeline overlap "
+          f"{run['sync']}, pipeline overlap "
           f"{pipeline.stats['overlap_s']:.3f} s, await "
           f"{pipeline.stats['await_s']:.3f} s; {pauses}", flush=True)
     print(f"{label}: fused epoch updates {run['fused']}, "
@@ -900,13 +927,16 @@ def phase_ssz_hasher(spec, post) -> dict:
 # -- phase 5 ----------------------------------------------------------------
 
 
-def phase_altair(n_validators: int) -> dict:
+def phase_lineage(fork: str, n_validators: int) -> dict:
+    """The main path of an altair-lineage fork, literally: the epoch on a
+    CUDA-built spec (it launches neither kernel), the boundary block
+    replayed on a ``device="cpu"`` spec with the same root."""
     from consensus_specs_tpu_torch import scenario
     from consensus_specs_tpu_torch.crypto import bls
     from consensus_specs_tpu_torch.ops import sha256
     from consensus_specs_tpu_torch.specs import get_spec
 
-    spec = get_spec("altair", "mainnet", device="cuda")
+    spec = get_spec(fork, "mainnet", device="cuda")
     t0 = time.perf_counter()
     state = scenario.build_main_path_state(spec, n_validators)
     t_state = time.perf_counter() - t0
@@ -915,13 +945,15 @@ def phase_altair(n_validators: int) -> dict:
     t_blocks = time.perf_counter() - t0
     n_atts = sum(len(b.message.body.attestations) for b in blocks)
     seats = [sum(b.message.body.sync_aggregate.sync_committee_bits) for b in blocks]
-    print(f"set-up: altair state with sync committees {t_state:.3f} s, "
+    print(f"set-up: {fork} state with sync committees {t_state:.3f} s, "
           f"{len(blocks)} signed blocks with {n_atts} aggregate attestations "
           f"and {len(blocks)} sync aggregates {t_blocks:.3f} s", flush=True)
     if len(blocks) != int(spec.SLOTS_PER_EPOCH):
         raise AssertionError("expected one epoch of blocks")
     if set(seats) != {int(spec.SYNC_COMMITTEE_SIZE)}:
         raise AssertionError(f"sync aggregates not fully set: {sorted(set(seats))}")
+    if hasattr(state, "latest_execution_payload_header"):
+        payload_numbers(spec, state, blocks)
 
     bls.bls_active = True
     post = state.copy()
@@ -940,28 +972,50 @@ def phase_altair(n_validators: int) -> dict:
     k2_launches = sha256.counts["u64_list_root"]
     k1_launches = sha256.counts["sha256_block64"]
     root = bytes(post.hash_tree_root())
-    print(f"altair literal path: {len(blocks)} blocks in {t_path:.3f} s (last "
+    print(f"{fork} literal path: {len(blocks)} blocks in {t_path:.3f} s (last "
           f"block, with the epoch transition: {t_end - t_last:.3f} s); K2 "
           f"launches {k2_launches}, K1 launches {k1_launches}; root "
           f"{root.hex()}", flush=True)
     if k2_launches or k1_launches:
-        raise AssertionError(f"the literal altair path launched K2 {k2_launches} "
+        raise AssertionError(f"the literal {fork} path launched K2 {k2_launches} "
                              f"and K1 {k1_launches} times, not 0")
 
-    cpu_spec = get_spec("altair", "mainnet", device="cpu")
-    cpu_state = cpu_spec.BeaconState.decode_bytes(bytes(pre_last.encode_bytes()))
+    cpu_spec = get_spec(fork, "mainnet", device="cpu")
+    cpu_state = cpu_leg_state(cpu_spec, pre_last)
     cpu_block = cpu_spec.SignedBeaconBlock.decode_bytes(
         bytes(blocks[-1].encode_bytes()))
     t0 = time.perf_counter()
     cpu_spec.state_transition(cpu_state, cpu_block, True)
     t_cpu = time.perf_counter() - t0
     cpu_root = bytes(cpu_state.hash_tree_root())
-    print(f"altair cpu leg: boundary block in {t_cpu:.3f} s; root "
+    print(f"{fork} cpu leg: boundary block in {t_cpu:.3f} s; root "
           f"{cpu_root.hex()}", flush=True)
     if cpu_root != root:
-        raise AssertionError("altair cuda and cpu post-state roots differ")
+        raise AssertionError(f"{fork} cuda and cpu post-state roots differ")
     return {"spec": spec, "pre": state, "blocks": blocks, "post": post,
             "root": root, "seconds": t_path, "k2_launches": k2_launches}
+
+
+def payload_numbers(spec, state, blocks) -> None:
+    """Print the execution payloads' sizes and check that they chain: a
+    state past the merge, each payload's parent the one before it."""
+    if not spec.is_merge_transition_complete(state):
+        raise AssertionError("the main path's state is not past the merge")
+    parent = state.latest_execution_payload_header.block_hash
+    txs, sizes = [], []
+    for signed in blocks:
+        payload = signed.message.body.execution_payload
+        if payload.parent_hash != parent:
+            raise AssertionError("the execution payloads do not chain")
+        parent = payload.block_hash
+        txs.append(len(payload.transactions))
+        sizes.append(sum(len(tx) for tx in payload.transactions))
+    print(f"execution payloads: {len(blocks)}, {min(txs)}-{max(txs)} "
+          f"transactions each, {min(sizes)}-{max(sizes)} transaction bytes "
+          f"(mean {np.mean(sizes):.0f}); block numbers "
+          f"{int(blocks[0].message.body.execution_payload.block_number)}-"
+          f"{int(blocks[-1].message.body.execution_payload.block_number)}",
+          flush=True)
 
 
 # -- phase 5b ---------------------------------------------------------------
@@ -1071,6 +1125,79 @@ def phase_altair_engine(altair: dict) -> dict:
     return run
 
 
+# -- phase 6b ---------------------------------------------------------------
+
+# of other_s: the payload step, bellatrix's literal process_execution_payload
+BELLATRIX_ENGINE_PHASES = ALTAIR_ENGINE_PHASES + ("execution_payload_s",)
+
+
+def phase_bellatrix_engine(bellatrix: dict) -> dict:
+    run = run_engine("bellatrix engine", bellatrix["spec"],
+                     bellatrix["pre"].copy(), bellatrix["blocks"], bellatrix,
+                     BELLATRIX_ENGINE_PHASES)
+    n_blocks = len(bellatrix["blocks"])
+    print(f"bellatrix engine: the payload step (execution_payload_s, inside "
+          f"other_s) {run['execution_payload_s']:.3f} s for {n_blocks} "
+          f"payloads", flush=True)
+    # as on altair: each block's sync rewards leave the balances subtree
+    # unhashed at its state-root check, so each check takes a resident root
+    if (run["resident"] != n_blocks or run["fused"] != 0
+            or run["sync"] != n_blocks or run["execution_payload_s"] <= 0):
+        raise AssertionError(
+            f"the bellatrix engine took {run['resident']} resident slot roots, "
+            f"{run['fused']} fused epoch updates and {run['sync']} sync "
+            f"aggregates for {n_blocks} blocks")
+    return run
+
+
+# -- phase 6c ---------------------------------------------------------------
+
+
+def phase_capella() -> dict:
+    """A minimal-preset capella epoch (``scenario.capella_withdrawal_epoch``:
+    one full withdrawal, one BLS-to-execution change) on a CUDA-built spec,
+    held against a CPU-built spec's root after every block; then through
+    the engine on the card, which replays every capella block literally."""
+    from consensus_specs_tpu_torch import scenario, stf
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.specs import get_spec
+
+    spec = get_spec("capella", "minimal", device="cuda")
+    cpu_spec = get_spec("capella", "minimal", device="cpu")
+    pre, blocks = scenario.capella_withdrawal_epoch(spec, 64)
+    bls.bls_active = True
+    state = pre.copy()
+    cpu_state = cpu_spec.BeaconState.decode_bytes(bytes(pre.encode_bytes()))
+    t0 = time.perf_counter()
+    for i, signed in enumerate(blocks):
+        spec.state_transition(state, signed, True)
+        cpu_spec.state_transition(cpu_state, cpu_spec.SignedBeaconBlock.decode_bytes(
+            bytes(signed.encode_bytes())), True)
+        if bytes(state.hash_tree_root()) != bytes(cpu_state.hash_tree_root()):
+            raise AssertionError(f"capella cuda and cpu roots differ at block {i}")
+    seconds = time.perf_counter() - t0
+    withdrawals = sum(len(b.message.body.execution_payload.withdrawals)
+                      for b in blocks)
+    changes = sum(len(b.message.body.bls_to_execution_changes) for b in blocks)
+    if (withdrawals, changes, int(state.withdrawal_index)) != (1, 1, 1):
+        raise AssertionError(f"capella walk: {withdrawals} withdrawals, "
+                             f"{changes} changes")
+    stf.reset_stats()
+    engine_state = pre.copy()
+    stf.apply_signed_blocks(spec, engine_state, blocks, True)
+    root = bytes(state.hash_tree_root())
+    print(f"capella (minimal, {len(blocks)} blocks, {withdrawals} full "
+          f"withdrawal, {changes} BLS-to-execution change): cuda and cpu "
+          f"specs equal after every block ({seconds:.3f} s for both); engine "
+          f"replayed {stf.stats['replayed_blocks']} "
+          f"{stf.stats['replay_reasons']}; root {root.hex()}", flush=True)
+    if (bytes(engine_state.hash_tree_root()) != root
+            or stf.stats["fast_blocks"] != 0
+            or stf.stats["replay_reasons"] != {"FastPathViolation": len(blocks)}):
+        raise AssertionError(f"the capella engine run: {stf.stats}")
+    return {"root": root}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1094,9 +1221,21 @@ def main(argv=None) -> int:
     with _phase("4 K1 as SSZ hasher"):
         ssz = phase_ssz_hasher(main_path["spec"], main_path["post"])
     with _phase(f"5 altair main path at {N_VALIDATORS} validators"):
-        altair = phase_altair(N_VALIDATORS)
+        altair = phase_lineage("altair", N_VALIDATORS)
     with _phase(f"5b altair engine at {N_VALIDATORS} validators"):
         altair_engine = phase_altair_engine(altair)
+    # the earlier phases' states and blocks go before phase 6, so that a
+    # full collection in its engine run does not walk them
+    k2_literal = main_path["k2_launches"]
+    del main_path, altair
+    gc.collect()
+    with _phase(f"6 bellatrix main path at {N_VALIDATORS} validators"):
+        bellatrix = phase_lineage("bellatrix", N_VALIDATORS)
+    with _phase(f"6b bellatrix engine at {N_VALIDATORS} validators"):
+        bellatrix_engine = phase_bellatrix_engine(bellatrix)
+    del bellatrix
+    with _phase("6c capella on the card (minimal preset)"):
+        phase_capella()
 
     k1_entry = {
         "name": "sha256_block64",
@@ -1122,9 +1261,11 @@ def main(argv=None) -> int:
         # the engine's run (phase 3b): the fused epoch update and the
         # resident per-slot root; the literal path's own count beside it
         "launches": engine["k2_launches"],
-        "launches_literal_path": main_path["k2_launches"],
-        # the altair engine's run (phase 5b): one resident root a block
+        "launches_literal_path": k2_literal,
+        # the altair and bellatrix engines' runs (phases 5b, 6b): one
+        # resident root a block
         "launches_altair_engine": altair_engine["k2_launches"],
+        "launches_bellatrix_engine": bellatrix_engine["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -20,7 +20,9 @@ On the CPU it runs the plain version, ``_reduce_to_root``, the reference's
 shape: split, byteswap and pack in torch, then the SHA-256 compression once
 per tree level (``ops/sha256.sha256_block64``).  Words there are int64
 tensors holding uint32 values until they cross into the compression as
-int32 bit patterns.
+int32 bit patterns.  The callers (``resident_device``) take this route
+on the CPU only when ``RESIDENT_ON_CPU`` asks for it, as the reference's
+policy keeps its host backend on hashlib.
 
 Reference seams: eth2spec/utils/ssz/ssz_impl.py:12-13 (hash_tree_root =
 backing.merkle_root()); merkleization rules ssz/simple-serialize.md:210-248
@@ -235,13 +237,25 @@ class ResidentPackedU64List:
 
 RESIDENT_MIN = 16_384  # below this, host hashing of the subtree is trivial
 
+# Whether a CPU spec takes the resident route too.  Off by default, as the
+# reference's CSTPU_RESIDENT_MERKLE="auto": on the CPU the torch reduction
+# costs ~0.3 s at 16,384 validators where hashlib's incremental root costs
+# a few ms.  True is the reference's "1": tests set it to drive the route
+# on the CPU.
+RESIDENT_ON_CPU = False
+
 
 def resident_device(n_validators: int, device):
     """The device the fused epoch+merkle program runs on for a registry of
-    ``n_validators``, or None to stay on the host hashing path.  The
-    reference picks between its backends by environment; here the spec's
-    own device is the choice, the CPU included, and only the size gates."""
-    return torch.device(device) if n_validators >= RESIDENT_MIN else None
+    ``n_validators``, or None to stay on the host hashing path: the spec's
+    own device from ``RESIDENT_MIN`` validators on, unless that device is
+    the CPU and ``RESIDENT_ON_CPU`` is False."""
+    device = torch.device(device)
+    if n_validators < RESIDENT_MIN:
+        return None
+    if device.type == "cpu" and not RESIDENT_ON_CPU:
+        return None
+    return device
 
 
 def _fused_epoch_balances(balances, eff, eligible, source_part, target_part,

@@ -11,7 +11,12 @@ previous epoch holds a full complement of pending attestations; on the
 altair lineage its participation flags and inactivity scores start at
 zero, its sync committees are drawn from the registry as
 ``upgrade_to_altair`` draws them, and every block also carries a sync
-aggregate of the whole 512-member committee (``with_sync=True``).
+aggregate of the whole 512-member committee (``with_sync=True``).  From
+bellatrix on the state is past the merge (its latest execution payload
+header is not the default) and every block carries an execution payload
+that extends the previous one, with a transaction list the size of a
+mainnet block after the merge (``TXS_PER_PAYLOAD`` transactions of
+``TX_BYTES`` random bytes, about 90 KB).
 
 All signing goes through the native C++ ``Sign``; every validator gets a
 real pubkey (cycled from the 8192 deterministic test keys), so
@@ -40,6 +45,11 @@ from consensus_specs_tpu_torch.testing.keys import (
 
 FAR_FUTURE = 2**64 - 1
 
+# The execution payload's transactions: this many a block, each of a size
+# drawn uniformly from this range of bytes (~90 KB a block on average)
+TXS_PER_PAYLOAD = 150
+TX_BYTES = (200, 1_000)
+
 
 def build_state(spec, n: int):
     """Synthetic mainnet-shape state at epoch 2: n active validators with
@@ -55,6 +65,7 @@ def build_state(spec, n: int):
         activation_eligibility_epoch=0,
         exit_epoch=FAR_FUTURE,
         withdrawable_epoch=FAR_FUTURE,
+        **_never_withdrawn(spec),
     ).get_backing()
     vlist_t = type(state.validators)
     contents = subtree_fill_to_contents([vnode] * n, vlist_t.contents_depth())
@@ -99,6 +110,15 @@ def build_state(spec, n: int):
     return state
 
 
+def _never_withdrawn(spec) -> dict:
+    """Capella's ``fully_withdrawn_epoch`` as ``upgrade_to_capella`` sets
+    it (its SSZ default 0 would mark every validator withdrawn); nothing
+    before capella."""
+    if "fully_withdrawn_epoch" in spec.Validator._field_names:
+        return {"fully_withdrawn_epoch": FAR_FUTURE}
+    return {}
+
+
 def install_real_pubkeys(spec, state, n: int) -> None:
     """Give every validator a REAL pubkey (cycled from the deterministic
     8192-key table) so signature verification is meaningful.  Repeated keys
@@ -114,6 +134,7 @@ def install_real_pubkeys(spec, state, n: int) -> None:
             activation_eligibility_epoch=0,
             exit_epoch=FAR_FUTURE,
             withdrawable_epoch=FAR_FUTURE,
+            **_never_withdrawn(spec),
         ).get_backing())
     nodes = [unique_nodes[i % NUM_KEYS] for i in range(n)]
     contents = subtree_fill_to_contents(nodes, vlist_t.contents_depth())
@@ -122,15 +143,71 @@ def install_real_pubkeys(spec, state, n: int) -> None:
 
 
 def build_main_path_state(spec, n: int):
-    """``build_state`` with real pubkeys, and on the altair lineage real
-    sync committees drawn from that registry the way ``upgrade_to_altair``
-    seeds them (altair/fork.md): the pre-state of the main path."""
+    """``build_state`` with real pubkeys, on the altair lineage real sync
+    committees drawn from that registry the way ``upgrade_to_altair`` seeds
+    them (altair/fork.md), and from bellatrix on a completed merge: the
+    pre-state of the main path."""
     state = build_state(spec, n)
     install_real_pubkeys(spec, state, n)
     if hasattr(state, "current_sync_committee"):
         state.current_sync_committee = spec.get_next_sync_committee(state)
         state.next_sync_committee = spec.get_next_sync_committee(state)
+    if hasattr(state, "latest_execution_payload_header"):
+        state.latest_execution_payload_header = merged_payload_header(spec)
     return state
+
+
+def merged_payload_header(spec):
+    """A non-default execution payload header, so that
+    ``is_merge_transition_complete`` holds and no block of the epoch is a
+    merge-transition block (which would need a PoW block lookup)."""
+    block_hash = spec.hash(b"scenario: the execution head before the epoch")
+    return spec.ExecutionPayloadHeader(
+        parent_hash=spec.hash(block_hash),
+        fee_recipient=b"\x42" * 20,
+        state_root=spec.hash(block_hash + b"state"),
+        receipts_root=spec.hash(block_hash + b"receipts"),
+        block_number=1_000_000,
+        gas_limit=30_000_000,
+        gas_used=15_000_000,
+        base_fee_per_gas=10**9,
+        block_hash=block_hash,
+        transactions_root=spec.hash(block_hash + b"transactions"),
+    )
+
+
+def execution_payload(spec, state, rng):
+    """The execution payload of the next block on ``state`` (advanced to
+    that block's slot, before its RANDAO reveal): it extends the state's
+    latest header, carries the RANDAO mix the block's payload check reads,
+    the slot's timestamp and ``TXS_PER_PAYLOAD`` random transactions.  No
+    execution client is attached, so its block hash is a deterministic
+    digest of the payload's root that the next payload chains to."""
+    prev = state.latest_execution_payload_header
+    sizes = rng.integers(TX_BYTES[0], TX_BYTES[1] + 1, TXS_PER_PAYLOAD)
+    blob = rng.integers(0, 256, int(sizes.sum()), dtype=np.uint8).tobytes()
+    ends = np.cumsum(sizes)
+    payload = spec.ExecutionPayload(
+        parent_hash=prev.block_hash,
+        fee_recipient=prev.fee_recipient,
+        state_root=rng.integers(0, 256, 32, dtype=np.uint8).tobytes(),
+        receipts_root=rng.integers(0, 256, 32, dtype=np.uint8).tobytes(),
+        logs_bloom=rng.integers(0, 256, int(spec.BYTES_PER_LOGS_BLOOM),
+                                dtype=np.uint8).tobytes(),
+        prev_randao=spec.get_randao_mix(state, spec.get_current_epoch(state)),
+        block_number=prev.block_number + 1,
+        gas_limit=prev.gas_limit,
+        gas_used=int(rng.integers(0, int(prev.gas_limit) + 1)),
+        timestamp=spec.compute_timestamp_at_slot(state, state.slot),
+        base_fee_per_gas=prev.base_fee_per_gas,
+        transactions=[blob[end - size:end] for size, end in zip(sizes, ends)],
+    )
+    if hasattr(spec, "get_expected_withdrawals"):
+        # capella: the payload dequeues the state's withdrawal queue
+        payload.withdrawals = spec.get_expected_withdrawals(state)
+    payload.block_hash = spec.hash(
+        payload.hash_tree_root() + b"scenario: execution block hash")
+    return payload
 
 
 def _sk_for(index) -> int:
@@ -173,27 +250,37 @@ def attestations_for(spec, st, block_slot: int) -> list:
     return atts
 
 
-def build_epoch_blocks(spec, state, with_sync: bool = False) -> list:
+def build_epoch_blocks(spec, state, with_sync: bool = False,
+                       seed: int = 0, address_changes=None) -> list:
     """Construct and sign one epoch of full blocks from ``state`` (which is
     left untouched).  ``with_sync`` adds a fully participating sync
-    aggregate to every block (altair+).  Verification is off while
-    constructing; the caller's ``bls.bls_active`` is restored afterwards."""
+    aggregate to every block (altair+); on a state past the merge every
+    block carries an execution payload whose random bytes come from
+    ``seed``; ``address_changes`` maps a block's index in the epoch to the
+    signed BLS-to-execution changes it carries (capella).  Verification is
+    off while constructing; the caller's ``bls.bls_active`` is restored
+    afterwards."""
     was_active = bls.bls_active
     bls.bls_active = False
     try:
-        return _build_epoch_blocks(spec, state, with_sync)
+        return _build_epoch_blocks(spec, state, with_sync, seed,
+                                   address_changes or {})
     finally:
         bls.bls_active = was_active
 
 
-def _build_epoch_blocks(spec, state, with_sync: bool):
+def _build_epoch_blocks(spec, state, with_sync: bool, seed: int,
+                        address_changes: dict):
     build_st = state.copy()
+    rng = np.random.default_rng(seed)
+    with_payload = (hasattr(state, "latest_execution_payload_header")
+                    and spec.is_merge_transition_complete(state))
     signed_blocks = []
     sync_sks = None
     if with_sync:
         sync_sks = [pubkey_to_privkey[bytes(pk)]
                     for pk in state.current_sync_committee.pubkeys]
-    for _ in range(int(spec.SLOTS_PER_EPOCH)):
+    for i in range(int(spec.SLOTS_PER_EPOCH)):
         slot = int(build_st.slot) + 1
         stub = build_st.copy()
         spec.process_slots(stub, slot)
@@ -210,6 +297,10 @@ def _build_epoch_blocks(spec, state, with_sync: bool):
                 epoch, spec.get_domain(build_st, spec.DOMAIN_RANDAO, epoch)))
         for att in attestations_for(spec, stub, slot):
             block.body.attestations.append(att)
+        if with_payload:
+            block.body.execution_payload = execution_payload(spec, stub, rng)
+        for change in address_changes.get(i, ()):
+            block.body.bls_to_execution_changes.append(change)
         if with_sync:
             # process_sync_aggregate verifies over the previous slot's
             # block root (altair/beacon-chain.md:536-543) = parent_root
@@ -232,3 +323,30 @@ def _build_epoch_blocks(spec, state, with_sync: bool):
                     block, spec.get_domain(
                         build_st, spec.DOMAIN_BEACON_PROPOSER)))))
     return signed_blocks
+
+
+def capella_withdrawal_epoch(spec, n: int, seed: int = 0):
+    """(pre-state, signed blocks): one capella epoch from
+    ``build_main_path_state`` in which validator 1 holds eth1 credentials
+    and becomes withdrawable in the state's epoch, so the epoch transition
+    queues its full withdrawal and the boundary block's payload dequeues
+    it, and the epoch's third block rotates validator 2's BLS credentials
+    (those of test key ``NUM_KEYS - 1``) to an execution address."""
+    state = build_main_path_state(spec, n)
+    withdrawn = state.validators[1]
+    withdrawn.withdrawal_credentials = (
+        bytes(spec.ETH1_ADDRESS_WITHDRAWAL_PREFIX) + b"\x00" * 11 + b"\x51" * 20)
+    withdrawn.withdrawable_epoch = spec.get_current_epoch(state)
+    key = NUM_KEYS - 1
+    state.validators[2].withdrawal_credentials = (
+        bytes(spec.BLS_WITHDRAWAL_PREFIX) + spec.hash(pubkeys[key])[1:])
+    change = spec.BLSToExecutionChange(
+        validator_index=2, from_bls_pubkey=pubkeys[key],
+        to_execution_address=b"\x52" * 20)
+    domain = spec.get_domain(state, spec.DOMAIN_BLS_TO_EXECUTION_CHANGE)
+    signed = spec.SignedBLSToExecutionChange(
+        message=change,
+        signature=native.Sign(privkeys[key], spec.compute_signing_root(change, domain)))
+    blocks = build_epoch_blocks(spec, state, with_sync=True, seed=seed,
+                                address_changes={2: [signed]})
+    return state, blocks

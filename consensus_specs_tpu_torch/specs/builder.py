@@ -23,8 +23,9 @@ setup.py:741-764, without the markdown round-trip):
 Port of ``consensus_specs_tpu/specs/builder.py``.  A spec is built for one
 torch device (``get_spec(fork, preset, device=None)``; None is the CUDA
 card): its epoch substitutions run their tensor work there.  The port
-builds the phase0 -> altair ladder; bellatrix and later forks come with
-ROADMAP queue A, item 6.
+builds the mainline ladder phase0 -> altair -> bellatrix -> capella; the
+research forks that hang off bellatrix in the reference come with ROADMAP
+queue A, item 18.
 """
 from __future__ import annotations
 
@@ -78,14 +79,23 @@ from consensus_specs_tpu_torch.ssz.types import (
 SRC_DIR = Path(__file__).parent / "src"
 
 # Fork topology: each fork execs its parent chain's sources then its own.
-# The port carries phase0 and altair so far.
+# The port carries the reference's mainline ladder phase0 -> altair ->
+# bellatrix -> capella.
 FORK_PARENTS = {
     "phase0": None,
     "altair": "phase0",
+    "bellatrix": "altair",
+    "capella": "bellatrix",
 }
 
 # Mainline order (kept for callers that iterate the production ladder).
-FORK_ORDER = ("phase0", "altair")
+FORK_ORDER = ("phase0", "altair", "bellatrix", "capella")
+
+# The forks that inherit altair's process_attestation and sync aggregate
+# verbatim: they take the vectorized attestation path and its
+# participation scope.  The reference's sharding-family forks redefine
+# process_attestation and keep the sequential path.
+ALTAIR_LINEAGE = ("altair", "bellatrix", "capella")
 
 
 def fork_chain(fork: str) -> Tuple[str, ...]:
@@ -333,8 +343,9 @@ def _install_optimizations(g: Dict[str, Any], device: torch.device) -> None:
         _install_phase0_epoch_kernel(g, device)
     else:
         _install_altair_epoch_kernel(g)
-        _install_altair_attestation_kernel(g)
-        _install_sync_aggregate_index(g)
+        if g["fork"] in ALTAIR_LINEAGE:
+            _install_altair_attestation_kernel(g)
+        _install_sync_aggregate_index(g)  # every fork inherits altair's
     _install_deferred_block_verification(g)
 
 
@@ -585,7 +596,7 @@ def _install_deferred_block_verification(g: Dict[str, Any]) -> None:
     orig = g["process_block"]
     # only the forks whose process_attestation consumes the scope (the
     # altair lineage)
-    with_participation = g["fork"] != "phase0"
+    with_participation = g["fork"] in ALTAIR_LINEAGE
 
     def process_block(state, block):
         scope = token = None
@@ -638,6 +649,8 @@ def _swap(g: Dict[str, Any], name: str, fn) -> None:
 _SLASHING_MULT = {
     "phase0": "PROPORTIONAL_SLASHING_MULTIPLIER",
     "altair": "PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR",
+    "bellatrix": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+    "capella": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
 }
 
 
@@ -690,7 +703,8 @@ def _install_phase0_epoch_kernel(g: Dict[str, Any], device: torch.device) -> Non
     vectorized torch deltas on ``device`` + bulk balance write (SURVEY §7
     step 7; sanctioned-substitution pattern of reference setup.py:65-68).
     At ``RESIDENT_MIN`` validators and up, the deltas, the balance update
-    and the balances' merkle root run as one fused pass on ``device``.
+    and the balances' merkle root run as one fused pass on ``device`` (on a
+    CPU device only with ``merkle_resident.RESIDENT_ON_CPU``).
     Differential tests: tests/test_torch_spec_phase0.py."""
     from consensus_specs_tpu_torch.ops import epoch as epoch_ops
     from consensus_specs_tpu_torch.ops import merkle_resident

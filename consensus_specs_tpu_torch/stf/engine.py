@@ -1,8 +1,9 @@
 """Batched block-transition engine: ``apply_signed_blocks``.
 
 Port of ``consensus_specs_tpu/stf/engine.py``: the phase0 lineage and
-the altair lineage (participation flags, sync aggregates).  Every other
-fork replays through the literal spec.
+the altair lineage (participation flags, sync aggregates), bellatrix's
+execution payload included.  Every other fork (capella: withdrawals and
+BLS-to-execution changes) replays through the literal spec.
 
 Replays a sequence of signed blocks through the spec state transition with
 three fused optimizations:
@@ -30,8 +31,9 @@ literal ``spec.state_transition``, which raises the spec's exact exception
 type/message at the spec's exact point and leaves the state exactly as
 poisoned as the sequential path would have.  Valid blocks therefore land
 byte-identical post-states, and invalid blocks are indistinguishable from
-the spec path (pinned by tests/test_torch_stf_engine.py and
-tests/test_torch_stf_engine_altair.py).  The one
+the spec path (pinned by tests/test_torch_stf_engine.py,
+tests/test_torch_stf_engine_altair.py and
+tests/test_torch_stf_engine_bellatrix.py).  The one
 exception is a failing kernel (``ops.sha256.KernelError``): the block's
 pre-state is restored and the error raised to the caller, with no replay
 and no breaker accounting, so a broken device path never hides behind the
@@ -71,10 +73,11 @@ from .attestations import (
 )
 
 # the fork families the fast path covers: phase0's pending-attestation
-# shape, and the altair lineage (participation flags + sync aggregates).
-# bellatrix (the execution payload) and later forks replay through the
-# literal spec until the port builds them.
-FAST_FORKS = ("phase0", "altair")
+# shape, and the altair lineage (participation flags + sync aggregates;
+# bellatrix adds the execution payload, run literally in the snapshot
+# region).  capella+ (withdrawals, bls_to_execution_changes) replay
+# through the literal spec until the engine grows those operations.
+FAST_FORKS = ("phase0", "altair", "bellatrix")
 
 # circuit breaker: after BREAKER_THRESHOLD CONSECUTIVE unexpected
 # fast-path errors (not FastPathViolations — those are the contract
@@ -129,6 +132,9 @@ stats = {
     "sync_apply_s": 0.0,
     "slot_roots_s": 0.0,
     "other_s": 0.0,
+    # of other_s: bellatrix's literal process_execution_payload (the
+    # payload's header cached, its transactions hashed)
+    "execution_payload_s": 0.0,
 }
 
 
@@ -268,7 +274,7 @@ def _apply_one(spec, state, signed_block, validate_result: bool) -> None:
             # uncovered forks keep their own kernel substitutions + the
             # facade's deferred per-block batch
             raise FastPathViolation(
-                "fast path covers phase0/altair + native BLS")
+                "fast path covers phase0/altair/bellatrix + native BLS")
         with staging.block_transaction():
             _fast_transition(spec, state, signed_block, validate_result,
                              link=link)
@@ -387,11 +393,19 @@ def _collect_block(spec, state, signed_block, validate_result: bool,
     t2 = time.perf_counter()
 
     # process_block shape of the block's own fork (phase0.py:1149-1154,
-    # altair.py:405-410): header/RANDAO/attestations/sync aggregate run
-    # the vectorized or collect-don't-verify variants below; the
-    # remaining operations are the spec's own functions
+    # altair.py:405-410, bellatrix.py:242-249): header/RANDAO/attestations/
+    # sync aggregate run the vectorized or collect-don't-verify variants
+    # below; the remaining operations are the spec's own functions
     with timeline.span("host/operations", link=link):
         _header(spec, state, block)
+        if spec.fork == "bellatrix" and spec.is_execution_enabled(state, block.body):
+            # [New in Bellatrix] — literal, inside the snapshot-protected
+            # region: payload checks raise straight into the replay
+            # contract; its seconds land in other_s
+            t_payload = time.perf_counter()
+            spec.process_execution_payload(
+                state, block.body.execution_payload, spec.EXECUTION_ENGINE)
+            stats["execution_payload_s"] += time.perf_counter() - t_payload
         _randao_collect(spec, state, block.body, collect, bls_on)
         spec.process_eth1_data(state, block.body)
         t3 = time.perf_counter()
@@ -691,7 +705,7 @@ def _apply_pipelined(spec, state, signed_blocks, validate_result: bool):
             i = settle_then_replay(
                 "fast_path_unready",
                 FastPathViolation(
-                    "fast path covers phase0/altair + native BLS"),
+                    "fast path covers phase0/altair/bellatrix + native BLS"),
                 rec)
             continue
         spec_keys = (frozenset().union(*(p.keys_set for p in window))

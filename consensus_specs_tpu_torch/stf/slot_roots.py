@@ -10,8 +10,10 @@ balances subtree (epoch kernels and state loaders rewrite the whole vector
 through ``ssz/bulk.py``, leaving an unhashed power-of-two subtree of ~n/4
 chunks).  From ``merkle_resident.RESIDENT_MIN`` validators on, that
 subtree is reduced on the device the spec was built for (``spec.device``;
-K2 on CUDA, the plain reduction on the CPU) and the 32-byte root is
-memoized into the host backing (``memoize_packed_u64_contents_root``).
+K2 on CUDA) and the 32-byte root is memoized into the host backing
+(``memoize_packed_u64_contents_root``).  A CPU spec keeps the host hashing
+path unless ``merkle_resident.RESIDENT_ON_CPU`` asks for the plain
+reduction.
 
 Unlike the reference, a failure of the device reduction is not caught.
 The kernel raises ``ops.sha256.KernelError``, which the engine lets

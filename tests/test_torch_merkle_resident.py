@@ -129,11 +129,24 @@ def test_memoized_contents_root_matches_host(n):
     assert bytes(lst.hash_tree_root()) == _ssz_root(values)
 
 
-def test_resident_device_gates_on_size_only():
-    assert merkle_resident.resident_device(merkle_resident.RESIDENT_MIN - 1,
-                                           "cpu") is None
-    assert merkle_resident.resident_device(merkle_resident.RESIDENT_MIN,
-                                           "cpu") == torch.device("cpu")
+def test_resident_device_gates_on_size_only(monkeypatch):
+    """The reference's policy: the CPU stays on the host hashing path at
+    any size unless ``RESIDENT_ON_CPU`` forces the route; a CUDA device is
+    gated by the size alone (the policy reads no card)."""
+    n_min = merkle_resident.RESIDENT_MIN
+    assert merkle_resident.RESIDENT_ON_CPU is False
+    for n in (0, n_min - 1, n_min, 400_000, 2**40):
+        assert merkle_resident.resident_device(n, "cpu") is None
+        assert merkle_resident.resident_device(n, torch.device("cpu")) is None
+    monkeypatch.setattr(merkle_resident, "RESIDENT_ON_CPU", True)
+    assert merkle_resident.resident_device(n_min - 1, "cpu") is None
+    assert merkle_resident.resident_device(n_min, "cpu") == torch.device("cpu")
+    for forced in (True, False):
+        monkeypatch.setattr(merkle_resident, "RESIDENT_ON_CPU", forced)
+        assert merkle_resident.resident_device(n_min - 1, "cuda") is None
+        assert merkle_resident.resident_device(n_min, "cuda") == torch.device("cuda")
+        assert merkle_resident.resident_device(
+            400_000, "cuda:0") == torch.device("cuda:0")
 
 
 # -- K2 on the card -----------------------------------------------------------

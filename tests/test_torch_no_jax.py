@@ -2,8 +2,8 @@
 
 * a subprocess with ``jax`` blocked and an import blocker for
   ``consensus_specs_tpu`` imports every module of the port and builds the
-  minimal phase0 and altair specs on the CPU (a subprocess, because the
-  test session itself imports jax);
+  minimal phase0, altair, bellatrix and capella specs on the CPU (a
+  subprocess, because the test session itself imports jax);
 * a static scan of the port's sources finds no such import;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
@@ -52,6 +52,11 @@ altair = get_spec("altair", "minimal", device="cpu")
 assert altair.phase0 is spec and altair.SYNC_COMMITTEE_SIZE == 32
 from consensus_specs_tpu_torch.stf import engine
 assert "altair" in engine.FAST_FORKS
+# the ladder on to capella: bellatrix's execution engine stub, capella's
+# withdrawals, and the engine's bellatrix fast path
+capella = get_spec("capella", "minimal", device="cpu")
+assert capella.bellatrix.altair is altair and capella.MAX_WITHDRAWALS_PER_PAYLOAD == 16
+assert "bellatrix" in engine.FAST_FORKS and "capella" not in engine.FAST_FORKS
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))

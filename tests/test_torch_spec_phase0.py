@@ -75,7 +75,10 @@ def test_minimal_blocks_across_two_epoch_transitions(bls_on):
     assert bytes(port_state.encode_bytes()) == bytes(state.encode_bytes())
 
 
-def test_mainnet_epoch_at_16384_through_the_fused_path():
+def test_mainnet_epoch_at_16384_through_the_fused_path(monkeypatch):
+    # the CPU keeps the host path by default (the reference's policy);
+    # forced here to hold the fused route to the reference on the CPU
+    monkeypatch.setattr(merkle_resident, "RESIDENT_ON_CPU", True)
     n = merkle_resident.RESIDENT_MIN
     ref_spec = ref_get_spec("phase0", "mainnet")
     spec = get_spec("phase0", "mainnet", device="cpu")
@@ -93,9 +96,11 @@ def test_mainnet_epoch_at_16384_through_the_fused_path():
 
 
 @pytest.mark.slow
-def test_main_path_at_400k_matches_reference(bls_on):
+def test_main_path_at_400k_matches_reference(bls_on, monkeypatch):
     """The main path on the CPU: 32 signed blocks at 400,000 validators,
-    port vs reference, equal roots after every block."""
+    port vs reference, equal roots after every block; the fused epoch
+    route forced on the CPU, as the card takes it."""
+    monkeypatch.setattr(merkle_resident, "RESIDENT_ON_CPU", True)
     n = 400_000
     spec = get_spec("phase0", "mainnet", device="cpu")
     ref_spec = ref_get_spec("phase0", "mainnet")

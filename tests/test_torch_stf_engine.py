@@ -42,6 +42,7 @@ from consensus_specs_tpu_torch.crypto import bls
 from consensus_specs_tpu_torch.ops import merkle_resident
 from consensus_specs_tpu_torch.ops.sha256 import KernelError
 from consensus_specs_tpu_torch.specs import get_spec
+from consensus_specs_tpu_torch.ssz import bulk
 from consensus_specs_tpu_torch.stf import attestations, pipeline, slot_roots, verify
 
 _CORPUS = {}
@@ -218,25 +219,47 @@ def test_slot_roots_match_spec_process_slots():
         slot_roots.process_slots(spec, state.copy(), state.slot)
 
 
-def test_slot_roots_resident_route_at_16384(tracing_on):
-    """A mainnet-preset state whose balances were bulk-written: the first
-    slot root reduces the balances subtree on the spec's device and
-    memoizes it; the roots equal the host-hashed literal path's on an
-    independent decode of the same state."""
+@pytest.fixture
+def resident_on_cpu(monkeypatch):
+    """The resident route forced on the CPU (by default a CPU spec keeps
+    the host hashing path, the reference's policy)."""
+    monkeypatch.setattr(merkle_resident, "RESIDENT_ON_CPU", True)
+
+
+def test_slot_roots_resident_route_at_16384(tracing_on, monkeypatch):
+    """A mainnet-preset state whose balances were bulk-written.  Under the
+    default policy a CPU spec hashes them on the host and takes no
+    resident root.  With the route forced, the first slot root reduces the
+    balances subtree on the spec's device and memoizes it.  Either way the
+    roots equal the host-hashed literal path's on an independent decode of
+    the same state."""
     n = merkle_resident.RESIDENT_MIN
     spec = get_spec("phase0", "mainnet", device="cpu")
     state = scenario.build_state(spec, n)
     literal = spec.BeaconState.decode_bytes(bytes(state.encode_bytes()))
     assert state.balances.get_backing().left._root is None
-    memoized = merkle_resident.stats["roots_memoized"]
-    slot_roots.process_slots(spec, state, state.slot + 2)
     spec.process_slots(literal, literal.slot + 2)
+
+    memoized = merkle_resident.stats["roots_memoized"]
+    # balances bulk-written again: a plain copy would share (and so hash)
+    # the subtree the forced run below needs unhashed
+    default = state.copy()
+    bulk.set_packed_uint64_from_numpy(
+        default.balances, bulk.packed_uint64_to_numpy(state.balances))
+    assert default.balances.get_backing().left._root is None
+    slot_roots.process_slots(spec, default, default.slot + 2)
+    assert tracing.report()["counters"].get("stf.resident_slot_root") is None
+    assert merkle_resident.stats["roots_memoized"] == memoized
+    assert bytes(default.hash_tree_root()) == bytes(literal.hash_tree_root())
+
+    monkeypatch.setattr(merkle_resident, "RESIDENT_ON_CPU", True)
+    slot_roots.process_slots(spec, state, state.slot + 2)
     assert tracing.report()["counters"].get("stf.resident_slot_root") == 1
     assert merkle_resident.stats["roots_memoized"] == memoized + 1
     assert bytes(state.hash_tree_root()) == bytes(literal.hash_tree_root())
 
 
-def test_slot_roots_raise_on_a_failing_reduction(monkeypatch):
+def test_slot_roots_raise_on_a_failing_reduction(monkeypatch, resident_on_cpu):
     """A device reduction that fails raises; there is no host fallback
     that would hide it."""
     spec = get_spec("phase0", "mainnet", device="cpu")
@@ -260,7 +283,8 @@ def _assert_no_replay():
     assert stf.stats["breaker_state"] == "closed"
 
 
-def test_engine_raises_a_failing_kernel(bls_on, pipelined, monkeypatch):
+def test_engine_raises_a_failing_kernel(bls_on, pipelined, monkeypatch,
+                                       resident_on_cpu):
     """K2 failing in the first block's slot root, on a 16,384-validator
     state with bulk-written balances: the engine raises the error with the
     pre-state restored, and replays nothing on the host path."""
@@ -314,9 +338,10 @@ def test_kernel_error_mid_window_settles_the_blocks_before(
 
 
 @pytest.mark.slow
-def test_main_path_at_400k_through_the_engine(bls_on):
+def test_main_path_at_400k_through_the_engine(bls_on, resident_on_cpu):
     """The main path on the CPU: 32 signed blocks at 400,000 validators
-    through the engine in one call, root equal to the literal path's."""
+    through the engine in one call, root equal to the literal path's; the
+    fused epoch route forced on the CPU, as the card takes it."""
     spec = get_spec("phase0", "mainnet", device="cpu")
     state = scenario.build_main_path_state(spec, 400_000)
     blocks = scenario.build_epoch_blocks(spec, state)

@@ -18,10 +18,12 @@ run also holds the engine's counters (every block fast, none replayed).
 * ``stf.sync``: the seat rows equal the reference's (duplicate pubkeys
   included), and the net-delta rewards raise ``FastPathViolation`` where
   the reference's raise;
+* the resident route forced on the CPU on the minimal corpus: each
+  block's state-root check reduces the balances touched by the sync
+  rewards with the plain reduction, as K2 does on the card;
 * mainnet preset at 16,384 validators: the main path's altair epoch
-  through the engine, where each block's state-root check reduces the
-  balances touched by the sync rewards on the spec's device (the plain
-  reduction on the CPU), pipeline on and off;
+  through the engine, pipeline on and off, on the host hashing path that a
+  CPU spec keeps by default;
 * the 400,000-validator altair epoch through the engine (``slow``).
 """
 import numpy as np
@@ -34,6 +36,7 @@ from consensus_specs_tpu.stf import verify as ref_verify
 from consensus_specs_tpu.testing.helpers.block import build_empty_block_for_next_slot
 from consensus_specs_tpu.testing.helpers.state import state_transition_and_sign_block
 from consensus_specs_tpu_torch import scenario, stf, tracing
+from consensus_specs_tpu_torch.ops import merkle_resident
 from consensus_specs_tpu_torch.specs import get_spec
 from consensus_specs_tpu_torch.stf import attestations, pipeline, sync, verify
 
@@ -96,7 +99,7 @@ def pipelined(request, monkeypatch):
 def test_altair_is_a_fast_fork():
     from consensus_specs_tpu_torch.stf import engine
 
-    assert engine.FAST_FORKS == ("phase0", "altair")
+    assert engine.FAST_FORKS == ("phase0", "altair", "bellatrix")
 
 
 def test_engine_matches_reference_engine_and_literal(bls_on, pipelined):
@@ -282,21 +285,44 @@ def test_sync_committee_rows_match_the_reference():
     assert int(got.max()) < 8192  # first occurrences of cycled keys
 
 
+def test_resident_route_forced_on_the_cpu(bls_on, tracing_on, monkeypatch):
+    """The minimal corpus through the engine with the resident route
+    forced on the CPU and its size gate lowered to the corpus's registry:
+    each block's sync rewards leave the balances subtree unhashed at its
+    state-root check, so every block takes the resident route (the plain
+    reduction, as K2 on the card), and the roots stay the literal path's."""
+    monkeypatch.setattr(merkle_resident, "RESIDENT_ON_CPU", True)
+    monkeypatch.setattr(merkle_resident, "RESIDENT_MIN", 1)
+    ref_spec, spec, pre, blocks = altair_corpus()
+    port_blocks = [to_port(spec.SignedBeaconBlock, b) for b in blocks]
+    literal = to_port(spec.BeaconState, pre)
+    for block in port_blocks:
+        spec.state_transition(literal, block, True)
+    _fresh_engines()
+    state = to_port(spec.BeaconState, pre)
+    state.hash_tree_root()  # the decoded pre-state's balances hashed
+    stf.apply_signed_blocks(spec, state, port_blocks, True)
+    _assert_all_fast(len(blocks))
+    assert tracing.report()["counters"].get("stf.resident_slot_root") == len(blocks)
+    assert bytes(state.hash_tree_root()) == bytes(literal.hash_tree_root())
+
+
 def test_mainnet_altair_epoch_at_16384_through_the_engine(
         bls_on, pipelined, tracing_on):
     """The main path's altair epoch at 16,384 validators in one engine
     call: every block fast (so every block's state root, checked by the
     engine, equals the one its builder signed, which the reference's
-    literal replay reproduces in tests/test_torch_spec_altair.py); the
+    literal replay reproduces in tests/test_torch_spec_altair.py).  The
     sync rewards leave the balances subtree unhashed at each block's
-    check, so each takes the resident route."""
+    check; a CPU spec hashes it on the host (the reference's policy), so
+    no check takes the resident route, which K2 takes on the card."""
     spec, _, pre, blocks = mainnet_epoch()
     _fresh_engines()
     state = pre.copy()
     stf.apply_signed_blocks(spec, state, blocks, True)
     _assert_all_fast(len(blocks))
     counters = tracing.report()["counters"]
-    assert counters.get("stf.resident_slot_root") == len(blocks)
+    assert counters.get("stf.resident_slot_root") is None
     assert counters.get("stf.sync_aggregate") == len(blocks)
     assert bytes(state.hash_tree_root()) == bytes(blocks[-1].message.state_root)
 
