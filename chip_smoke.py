@@ -16,7 +16,8 @@ seconds:
    packing plus one K1 launch a level) at every power of two from 1 to 2^19
    chunks (one and two passes) and on the main path's balances; prints
    K2's ptxas report and the SASS opcode counts of K1 and K2 by pipe
-   (``cuobjdump -sass``); times K2 and the per-level route in turns at the
+   (``cuobjdump -sass``), with K1's ALU-pipe issue floor at 2^20 messages
+   (a model, not a bound); times K2 and the per-level route in turns at the
    main path's shape, with kernel-only times from ``torch.profiler`` where
    it sees the card, one tree level in one warp, the bound, and two models
    (not bounds) of the tree's dependency chain.
@@ -69,6 +70,22 @@ seconds:
    withdrawal and one BLS-to-execution change on a CUDA-built spec, equal
    to a CPU-built spec's root after every block; the engine replays every
    capella block literally, with the same root.
+7a. the reference's spec cases on the card: the tier-1 subset of the JAX
+   package's ``tests/spec/`` cases (``testing/reference_cases.TIER1``:
+   epoch sub-steps, exits, proposer slashings, slots with a config
+   override, rewards, sync aggregates, the execution payload, capella's
+   withdrawals), loaded by the port's ``testing/`` and run on specs built
+   for the card.  Every case must pass, and no CPU-built spec may appear;
+   prints the passed and skipped counts per case directory and the K1 and
+   K2 launches.
+7b. the config-override epoch at 400,000 validators, mainnet preset, for
+   phase0, altair and bellatrix: a spec built with ``CHURN_LIMIT_QUOTIENT``
+   overridden to 4,096 (``build_spec(..., config=)``) on the card and on
+   the CPU, the main path's pre-state with a seeded queue of 1,024
+   validators eligible for activation appended, and ``process_slots``
+   across the epoch boundary.  The card's root must equal the CPU's and
+   differ from the default config's on the card (more of the queue is
+   let in); on phase0 the fused epoch update runs once and launches K2.
 
 The CPU legs take the boundary block's pre-state by its backing tree (no
 serialize round trip) and hash on the host (a CPU spec keeps the host
@@ -99,6 +116,7 @@ import torch
 # behind the 67 TFLOP/s float32 figure, which counts an FMA as two)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 33.5e12
+SM_CLOCK_HZ = 1.98e9
 
 # the main path's registry size (the scale BASELINE.json states)
 N_VALIDATORS = 400_000
@@ -544,6 +562,15 @@ def print_sass(lib_path: str):
               f"one message hash: {per_round}; opcodes: {top}", flush=True)
         if label == "K1":
             k1_cycles = cycles
+            # a model, not a bound: the ALU pipe issues 16 lanes a clock on
+            # each of an SM's four sub-partitions, at the 1.98 GHz behind
+            # PEAK_INT32_OPS_PER_S
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            alu_ms = pipes["alu"] * (1 << 20) / (64 * sms * SM_CLOCK_HZ) * 1e3
+            print(f"K1 ALU-pipe issue floor at N=2^20 (a model, not a bound: "
+                  f"{pipes['alu']} ALU-pipe instructions a message, 64 lanes "
+                  f"a clock on each of {sms} SMs at {SM_CLOCK_HZ / 1e9} GHz): "
+                  f"{alu_ms:.4f} ms", flush=True)
     return k1_cycles
 
 
@@ -1198,6 +1225,177 @@ def phase_capella() -> dict:
     return {"root": root}
 
 
+# -- phase 7a ---------------------------------------------------------------
+
+
+def _spec_modules(device_tag: str) -> set:
+    """Names of the built spec modules of one device."""
+    prefix = "consensus_specs_tpu_torch.specs."
+    return {m for m in sys.modules
+            if m.startswith(prefix) and f"_{device_tag}" in m[len(prefix):]}
+
+
+def phase_spec_cases(device: str = "cuda") -> dict:
+    """The tier-1 subset of the reference's spec cases on specs built for
+    ``device``, through the port's loader.  A case that fails raises with
+    its name; one that skips fails the phase too."""
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.testing import context, reference_cases
+    from consensus_specs_tpu_torch.testing.exceptions import SkippedTest
+
+    selected = reference_cases.tier1_cases()
+    cpu_specs = _spec_modules("cpu")
+    tallies = {}
+    # outside pytest a case's skip raises SkippedTest
+    is_pytest, context.is_pytest = context.is_pytest, False
+    sha256.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with reference_cases.configured(device):
+            for relpath, name in selected:
+                tally = tallies.setdefault(relpath.split("/")[0],
+                                           {"passed": 0, "skipped": 0})
+                try:
+                    reference_cases.cases(relpath)[name]()
+                except SkippedTest:
+                    tally["skipped"] += 1
+                    continue
+                except BaseException:
+                    print(f"spec case failed: {relpath}::{name}", flush=True)
+                    raise
+                tally["passed"] += 1
+            if device != "cpu":
+                torch.cuda.synchronize()
+    finally:
+        context.is_pytest = is_pytest
+    seconds = time.perf_counter() - t0
+    launches = dict(sha256.counts)
+    passed = sum(t["passed"] for t in tallies.values())
+    print(f"spec cases on {device}-built specs: {len(selected)} cases in "
+          f"{seconds:.3f} s; "
+          + ", ".join(f"{fork} {t['passed']} passed, {t['skipped']} skipped"
+                      for fork, t in tallies.items())
+          + f"; K2 launches {launches['u64_list_root']}, K1 launches "
+          f"{launches['sha256_block64']}", flush=True)
+    if passed != len(selected):
+        raise AssertionError(f"{len(selected) - passed} of {len(selected)} "
+                             "spec cases did not run")
+    new_cpu = _spec_modules("cpu") - cpu_specs
+    if device != "cpu" and new_cpu:
+        raise AssertionError(f"the cases built CPU specs: {sorted(new_cpu)}")
+    return {"cases": len(selected), "passed": passed, "seconds": seconds,
+            "k2_launches": launches["u64_list_root"],
+            "k1_launches": launches["sha256_block64"]}
+
+
+# -- phase 7b ---------------------------------------------------------------
+
+OVERRIDE_FORKS = ("phase0", "altair", "bellatrix")
+# the churn quotient lets 400,000 // 4,096 = 97 validators in an epoch,
+# where the default's 65,536 lets in max(4, 6) = 6
+CONFIG_OVERRIDE = {"CHURN_LIMIT_QUOTIENT": 4096}
+ACTIVATION_QUEUE = 1024
+FAR_FUTURE = 2**64 - 1
+
+
+def override_pre_state(spec, n_validators: int, queue: int, seed: int):
+    """The main path's pre-state with ``queue`` validators appended, with
+    pubkeys drawn from ``seed``, each eligible for activation since epoch
+    0, which the state has finalized."""
+    from consensus_specs_tpu_torch import scenario
+
+    state = scenario.build_main_path_state(spec, n_validators)
+    keys = np.random.default_rng(seed).integers(0, 256, (queue, 48), dtype=np.uint8)
+    lineage = hasattr(state, "inactivity_scores")
+    for key in keys:
+        state.validators.append(spec.Validator(
+            pubkey=key.tobytes(),
+            effective_balance=spec.MAX_EFFECTIVE_BALANCE,
+            activation_eligibility_epoch=0,
+            activation_epoch=FAR_FUTURE,
+            exit_epoch=FAR_FUTURE,
+            withdrawable_epoch=FAR_FUTURE))
+        state.balances.append(spec.MAX_EFFECTIVE_BALANCE)
+        if lineage:
+            state.previous_epoch_participation.append(0)
+            state.current_epoch_participation.append(0)
+            state.inactivity_scores.append(0)
+    return state
+
+
+def phase_config_override(fork: str, n_validators: int, seed: int,
+                          device: str = "cuda") -> dict:
+    """``process_slots`` across an epoch boundary on a spec built with
+    ``CONFIG_OVERRIDE`` for ``device`` and for the CPU, and on the default
+    spec for ``device``, from one pre-state taken by its backing tree.
+    The device's override root must equal the CPU's and differ from the
+    default's; on phase0 at 16,384 validators and up the card's fused
+    epoch update runs once and launches K2 a root's passes."""
+    from consensus_specs_tpu_torch.ops import merkle_resident, sha256
+    from consensus_specs_tpu_torch.specs import get_spec
+    from consensus_specs_tpu_torch.specs.builder import build_spec
+
+    default = get_spec(fork, "mainnet", device=device)
+    config = default.config.replace(**{
+        k: type(getattr(default.config, k))(v) for k, v in CONFIG_OVERRIDE.items()})
+    t0 = time.perf_counter()
+    spec = build_spec(fork, "mainnet", device, config=config)
+    cpu_spec = build_spec(fork, "mainnet", "cpu", config=config)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre = override_pre_state(spec, n_validators, ACTIVATION_QUEUE, seed)
+    pre.hash_tree_root()  # once, on the host; the three runs share it
+    t_state = time.perf_counter() - t0
+    target = (int(pre.slot) // int(spec.SLOTS_PER_EPOCH) + 1) * int(spec.SLOTS_PER_EPOCH)
+
+    def run(s, label):
+        state = s.BeaconState.view_from_backing(pre.get_backing())
+        merkle_resident.stats["fused_epoch_updates"] = 0
+        sha256.reset_counts()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.process_slots(state, target)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        root = bytes(state.hash_tree_root())
+        activated = sum(int(state.validators[i].activation_epoch) != FAR_FUTURE
+                        for i in range(n_validators, len(state.validators)))
+        out = {"root": root, "seconds": seconds, "activated": activated,
+               "fused": merkle_resident.stats["fused_epoch_updates"],
+               "k2": sha256.counts["u64_list_root"],
+               "k1": sha256.counts["sha256_block64"]}
+        print(f"{fork} {label}: {target - int(pre.slot)} slots across the "
+              f"epoch boundary in {seconds:.3f} s; {activated} of "
+              f"{ACTIVATION_QUEUE} queued validators activated; fused epoch "
+              f"updates {out['fused']}, K2 launches {out['k2']}, K1 launches "
+              f"{out['k1']}; root {root.hex()}", flush=True)
+        return out
+
+    print(f"{fork} config override {CONFIG_OVERRIDE}: specs built in "
+          f"{t_build:.3f} s, pre-state of {len(pre.validators)} validators "
+          f"in {t_state:.3f} s", flush=True)
+    override = run(spec, f"override on {device}")
+    on_cpu = run(cpu_spec, "override on cpu")
+    plain = run(default, f"default config on {device}")
+    if override["root"] != on_cpu["root"]:
+        raise AssertionError(f"{fork}: the override's {device} and cpu roots differ")
+    if override["root"] == plain["root"] or override["activated"] <= plain["activated"]:
+        raise AssertionError(f"{fork}: the override changed nothing")
+    if override["k1"]:
+        raise AssertionError(f"{fork}: the override epoch launched K1")
+    if device != "cpu":
+        n_chunks = 1 << ((len(pre.balances) + 3) // 4 - 1).bit_length()
+        want = (1, sha256.k2_plan(n_chunks)[0]) if fork == "phase0" else (0, 0)
+        if (override["fused"], override["k2"]) != want:
+            raise AssertionError(
+                f"{fork}: {override['fused']} fused epoch updates and "
+                f"{override['k2']} K2 launches, not {want}")
+    return {"k2_launches": override["k2"], "seconds": override["seconds"],
+            "cpu_seconds": on_cpu["seconds"], "activated": override["activated"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1236,6 +1434,12 @@ def main(argv=None) -> int:
     del bellatrix
     with _phase("6c capella on the card (minimal preset)"):
         phase_capella()
+    with _phase("7a the reference's spec cases on CUDA-built specs"):
+        phase_spec_cases()
+    override = {}
+    for fork in OVERRIDE_FORKS:
+        with _phase(f"7b {fork} config-override epoch at {N_VALIDATORS} validators"):
+            override[fork] = phase_config_override(fork, N_VALIDATORS, args.seed)
 
     k1_entry = {
         "name": "sha256_block64",
@@ -1266,6 +1470,8 @@ def main(argv=None) -> int:
         # resident root a block
         "launches_altair_engine": altair_engine["k2_launches"],
         "launches_bellatrix_engine": bellatrix_engine["k2_launches"],
+        # the phase0 config-override epoch (phase 7b): its fused update
+        "launches_config_override": override["phase0"]["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -29,6 +29,7 @@ queue A, item 18.
 """
 from __future__ import annotations
 
+import itertools
 import sys
 import threading
 from dataclasses import dataclass, field
@@ -782,20 +783,28 @@ def _install_phase0_epoch_kernel(g: Dict[str, Any], device: torch.device) -> Non
 # RLock: building fork F recursively resolves its predecessor via get_spec
 _lock = threading.RLock()
 _spec_cache: Dict[Tuple[str, str, str], ModuleType] = {}
+# numbers the modules of config builds (see build_spec)
+_config_builds = itertools.count()
 
 
-def build_spec(fork: str, preset_name: str, device=None) -> ModuleType:
+def build_spec(fork: str, preset_name: str, device=None, config=None,
+               name: Optional[str] = None) -> ModuleType:
     """Build a fresh spec module (uncached) whose device work runs on
-    ``device`` (None: the CUDA card)."""
+    ``device`` (None: the CUDA card).  ``config`` may be a Config override
+    (the test framework's ``with_config_overrides``); the intermediate forks
+    are then built with it too.  ``name`` names the module."""
     assert fork in FORK_PARENTS, f"unknown fork {fork}"
     device = resolve_device(device)
     preset = get_preset(preset_name)
-    cfg = _typed_config(get_config(preset_name).to_dict())
+    cfg = config if config is not None else _typed_config(get_config(preset_name).to_dict())
 
     # the device is part of the name: a cpu and a cuda build of one fork
-    # must not replace each other in sys.modules
+    # must not replace each other in sys.modules, and a config build takes
+    # a name of its own, so that it never replaces the cached spec's
     dev_tag = str(device).replace(":", "_")
-    mod_name = f"consensus_specs_tpu_torch.specs.{fork}_{preset_name}_{dev_tag}"
+    mod_name = name or f"consensus_specs_tpu_torch.specs.{fork}_{preset_name}_{dev_tag}"
+    if name is None and config is not None:
+        mod_name += f"_config{next(_config_builds)}"
     mod = ModuleType(mod_name)
     g = mod.__dict__
     g.update(_base_env(preset, cfg))
@@ -822,7 +831,8 @@ def build_spec(fork: str, preset_name: str, device=None) -> ModuleType:
             break
         # snapshot the intermediate fork as its own finished spec so
         # upgrade functions see the *complete* predecessor
-        prev = get_spec(f, preset_name, device)
+        prev = (get_spec(f, preset_name, device) if config is None
+                else build_spec(f, preset_name, device, cfg))
 
     # optimizations first: the sundry LRU caches then wrap the vectorized
     # accessors (get_total_active_balance etc.), not the sequential ones

@@ -1,0 +1,270 @@
+"""The JAX package's spec cases (``tests/spec/``) on port-built specs.
+
+A case file stays the one text of its cases: the loader reads it, rewrites
+the reference package's name to the port's (as a whole word: the
+reference's name is a prefix of the port's), and executes it as a module
+of its own under the synthetic package ``PACKAGE``, which mirrors
+``tests/spec/`` so that the files' relative imports resolve the same way.
+A name the text binds to the port's ``get_spec`` builds for the context's
+device (``context.set_spec_device``), as the decorators' specs do.
+
+``case_names`` reads a file's cases from its syntax tree, so a test file
+can parametrize over them without importing anything; ``unresolved`` says
+why a file cannot run on the port (a fork the port does not build, an
+import with no counterpart in the port, or cases that take pytest
+fixtures or parameters), or None; ``cases`` loads a file and returns its
+``test_*`` callables; ``configured`` sets the context's device, preset,
+forks and BLS switch, with the native BLS backend, and restores them.
+"""
+from __future__ import annotations
+
+import ast
+import contextlib
+import importlib
+import importlib.abc
+import importlib.util
+import re
+import sys
+from pathlib import Path
+from typing import Callable, Dict, Iterator, List, Optional
+
+from consensus_specs_tpu_torch.specs import available_forks
+
+PORT = __name__.split(".")[0]
+# the reference package's name: the port's without its suffix
+REFERENCE = PORT[: -len("_torch")]
+_REFERENCE_WORD = re.compile(rf"\b{REFERENCE}\b")
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+CASES_ROOT = REPO_ROOT / "tests" / "spec"
+PACKAGE = "port_spec_cases"
+
+# third-party modules the case files may import besides the standard library
+_THIRD_PARTY = ("numpy", "pytest")
+
+# The case files (and directories, ending in "/") that the tier-1 tests run
+# on CPU-built specs and ``chip_smoke.py`` on CUDA-built ones: every epoch
+# sub-step, the voluntary exit and proposer slashing operations, slots
+# (with its config-override case), basic rewards, the altair sync
+# aggregate and config override, the bellatrix execution payload and the
+# capella withdrawals and BLS-to-execution changes
+TIER1 = (
+    "phase0/epoch_processing/",
+    "phase0/block_processing/test_process_voluntary_exit.py",
+    "phase0/block_processing/test_process_proposer_slashing.py",
+    "phase0/sanity/test_slots.py",
+    "phase0/rewards/test_basic.py",
+    "altair/epoch_processing/",
+    "altair/test_sync_aggregate.py",
+    "altair/unittests/test_config_override.py",
+    "bellatrix/test_process_execution_payload.py",
+    "capella/test_withdrawals.py",
+    "capella/test_bls_to_execution_change.py",
+    "capella/epoch_processing/test_process_full_withdrawals.py",
+)
+
+
+def rewrite(text: str) -> str:
+    """``text`` with every import of the reference package turned to the
+    port's."""
+    return _REFERENCE_WORD.sub(PORT, text)
+
+
+def case_files() -> List[str]:
+    """Every case file under ``tests/spec/``, relative to it."""
+    return sorted(p.relative_to(CASES_ROOT).as_posix()
+                  for p in CASES_ROOT.rglob("test_*.py"))
+
+
+def _tree(path: Path) -> ast.Module:
+    return ast.parse(path.read_text(), filename=str(path))
+
+
+def case_names(relpath: str) -> List[str]:
+    """The file's ``test_*`` names in their order: its functions and the
+    names it assigns, read from its syntax tree."""
+    names = []
+    for node in _tree(CASES_ROOT / relpath).body:
+        if isinstance(node, ast.FunctionDef) and node.name.startswith("test"):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets
+                      if isinstance(t, ast.Name) and t.id.startswith("test")]
+    return names
+
+
+def _port_module_exists(name: str) -> bool:
+    path = REPO_ROOT.joinpath(*name.split("."))
+    return path.with_suffix(".py").is_file() or (path / "__init__.py").is_file()
+
+
+def _relative_target(path: Path, level: int, module: Optional[str]) -> Path:
+    base = path.parent
+    for _ in range(level - 1):
+        base = base.parent
+    return base.joinpath(*module.split(".")) if module else base
+
+
+def _missing_imports(path: Path, seen: set) -> Iterator[str]:
+    """The imports of ``path`` and of the case-tree files it imports
+    relatively that have no counterpart here."""
+    if path in seen:
+        return
+    seen.add(path)
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            target = _relative_target(path, node.level, node.module)
+            files = ([target.with_suffix(".py")] if target.with_suffix(".py").is_file()
+                     else [target / f"{a.name}.py" for a in node.names])
+            for f in files:
+                if f.is_file():
+                    yield from _missing_imports(f, seen)
+            continue
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top == REFERENCE:
+                if not _port_module_exists(rewrite(name)):
+                    yield name
+            elif top not in sys.stdlib_module_names and top not in _THIRD_PARTY:
+                yield name
+
+
+def _takes_pytest_arguments(node: ast.FunctionDef) -> bool:
+    """A pytest-native test: parametrized or marked, or taking fixtures
+    without a decorator of the spec DSL to supply them."""
+    decorators = [ast.unparse(d) for d in node.decorator_list]
+    if any(d.startswith("pytest.") for d in decorators):
+        return True
+    return not decorators and bool(node.args.args)
+
+
+def unresolved(relpath: str) -> Optional[str]:
+    """Why the case file cannot run on port-built specs, or None."""
+    fork = relpath.split("/")[0]
+    if fork not in available_forks():
+        return f"the port builds no {fork} spec"
+    path = CASES_ROOT / relpath
+    missing = sorted(set(_missing_imports(path, set())))
+    if missing:
+        return "imports " + ", ".join(missing)
+    native = [n.name for n in _tree(path).body
+              if isinstance(n, ast.FunctionDef) and n.name.startswith("test")
+              and _takes_pytest_arguments(n)]
+    if native:
+        return "pytest fixtures or parameters: " + ", ".join(native)
+    return None
+
+
+def loadable_cases(forks) -> List[tuple]:
+    """``(file, name)`` of every case the loader can run in the case
+    directories of ``forks``."""
+    return [(f, name) for f in case_files()
+            if f.split("/")[0] in forks and unresolved(f) is None
+            for name in case_names(f)]
+
+
+def tier1_cases() -> List[tuple]:
+    """``(file, name)`` of every case of the ``TIER1`` subset."""
+    return [(f, name) for f, name in loadable_cases(tuple(available_forks()))
+            if f.startswith(TIER1)]
+
+
+class _CaseFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Serves ``PACKAGE.<dotted path>`` from ``tests/spec/<path>.py``,
+    rewritten to the port."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname != PACKAGE and not fullname.startswith(PACKAGE + "."):
+            return None
+        base = CASES_ROOT.joinpath(*fullname.split(".")[1:])
+        if base.is_dir():
+            spec = importlib.util.spec_from_loader(
+                fullname, self, origin=str(base / "__init__.py"), is_package=True)
+            spec.submodule_search_locations = [str(base)]
+        elif base.with_suffix(".py").is_file():
+            spec = importlib.util.spec_from_loader(
+                fullname, self, origin=str(base.with_suffix(".py")))
+        else:
+            return None
+        spec.has_location = True
+        return spec
+
+    def create_module(self, spec):
+        return None
+
+    def exec_module(self, module):
+        path = Path(module.__spec__.origin)
+        text = path.read_text() if path.is_file() else ""
+        # dont_inherit: this module's future imports stay out of the text
+        code = compile(rewrite(text), str(path), "exec", dont_inherit=True)
+        exec(code, module.__dict__)
+        _bind_get_spec(module)
+
+
+_finder = _CaseFinder()
+
+
+def _context_get_spec(fork: str, preset_name: str = "minimal", device=None):
+    """``get_spec`` on the context's device unless the caller names one."""
+    from consensus_specs_tpu_torch.specs import get_spec
+    from consensus_specs_tpu_torch.testing import context
+
+    return get_spec(fork, preset_name,
+                    context.spec_device() if device is None else device)
+
+
+def _bind_get_spec(module) -> None:
+    from consensus_specs_tpu_torch.specs import get_spec
+
+    for name, value in list(vars(module).items()):
+        if value is get_spec:
+            setattr(module, name, _context_get_spec)
+
+
+def load(relpath: str):
+    """The case file as a module of ``PACKAGE`` (loaded once)."""
+    if _finder not in sys.meta_path:
+        sys.meta_path.insert(0, _finder)
+    dotted = relpath[: -len(".py")].replace("/", ".")
+    return importlib.import_module(f"{PACKAGE}.{dotted}")
+
+
+def cases(relpath: str) -> Dict[str, Callable]:
+    """The file's ``test_*`` callables by name."""
+    module = load(relpath)
+    return {name: getattr(module, name) for name in case_names(relpath)}
+
+
+@contextlib.contextmanager
+def configured(device, preset: str = "minimal", forks=None,
+               bls_active: bool = True):
+    """The context builds its specs for ``device`` at ``preset``, runs the
+    given forks (None: every fork the port builds) and checks signatures
+    with the native backend unless ``bls_active`` is False; every global
+    it sets is restored on exit."""
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.testing import context
+
+    saved = (context.DEFAULT_TEST_PRESET, context.DEFAULT_PYTEST_FORKS,
+             context.DEFAULT_BLS_ACTIVE, bls.backend_name(), bls.bls_active)
+    previous_device = context.set_spec_device(device)
+    try:
+        context.DEFAULT_TEST_PRESET = preset
+        if forks is not None:
+            context.DEFAULT_PYTEST_FORKS = tuple(forks)
+        context.DEFAULT_BLS_ACTIVE = bls_active
+        if bls_active:
+            bls.use_native()
+        yield
+    finally:
+        context.set_spec_device(previous_device)
+        (context.DEFAULT_TEST_PRESET, context.DEFAULT_PYTEST_FORKS,
+         context.DEFAULT_BLS_ACTIVE) = saved[:3]
+        bls.use_backend(saved[3])
+        bls.bls_active = saved[4]

@@ -3,7 +3,9 @@
 * a subprocess with ``jax`` blocked and an import blocker for
   ``consensus_specs_tpu`` imports every module of the port and builds the
   minimal phase0, altair, bellatrix and capella specs on the CPU (a
-  subprocess, because the test session itself imports jax);
+  subprocess, because the test session itself imports jax); through the
+  port's ``testing/`` it then loads one of the reference's spec case
+  files and runs its config-override case on a CPU-built spec;
 * a static scan of the port's sources finds no such import;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
@@ -57,6 +59,13 @@ assert "altair" in engine.FAST_FORKS
 capella = get_spec("capella", "minimal", device="cpu")
 assert capella.bellatrix.altair is altair and capella.MAX_WITHDRAWALS_PER_PAYLOAD == 16
 assert "bellatrix" in engine.FAST_FORKS and "capella" not in engine.FAST_FORKS
+# the test framework and its loader: a reference case file, rewritten to
+# the port, runs on a CPU-built spec (its override builds a spec anew)
+from consensus_specs_tpu_torch.testing import context, reference_cases
+cases = reference_cases.cases("phase0/sanity/test_slots.py")
+with reference_cases.configured("cpu", forks=("phase0",), bls_active=False):
+    cases["test_epoch_ejections_under_raised_ejection_balance"]()
+assert context.spec_device() is None
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))
