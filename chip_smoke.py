@@ -6,9 +6,11 @@ Drives the port (``consensus_specs_tpu_torch``) only; it imports nothing
 of JAX and nothing of the reference package.  Phases, each printing its
 seconds:
 
-1. device: the card's name and power limit; builds the CUDA kernels K1
-   and K2 (``csrc/sha256.cu`` and ``csrc/sha256_tree.cu``, one nvcc call
-   for sm_90a) and the native BLS library in parallel.
+1. device: the card's name and power limit; builds the CUDA kernels, one
+   nvcc call for sm_90a a library, all at once and beside the native BLS
+   library's g++ build: K1 and K2 (``csrc/sha256.cu``,
+   ``csrc/sha256_tree.cu``), K3 (``csrc/bls_fq.cu``), K4 and K5
+   (``csrc/bls_miller.cu``); prints each kernel's ptxas report.
 2. K1 against its plain torch version on the card, bit for bit, at
    N in {1, 129, 2^20} and at every level of the main path's balances
    reduction, and against hashlib on a sample; times both.
@@ -86,11 +88,36 @@ seconds:
    across the epoch boundary.  The card's root must equal the CPU's and
    differ from the default config's on the card (more of the queue is
    let in); on phase0 the fused epoch update runs once and launches K2.
+8a. the device BLS kernels against their plain versions on the card: K3
+   (the Fq Montgomery product) at 2^20 operand pairs at the edge of its
+   envelope, which must also keep its output contract (digits in
+   [0, 2^26), values below 3p); K4 (a run of Miller doublings) and K5 (a
+   run of Fq12 squarings) at B = 64 items, K = 2 pairs, n = 32 steps, also
+   against the plain versions on the host.  Canonical values and limbs
+   equal.  Times (CUDA events, ``torch.profiler`` kernel only), the plain
+   versions' times, K3's SASS multiplies a product, and the bounds.
+8b. the device BLS backend, ``ops.bls.batch_fast_aggregate_verify`` on the
+   card, at the reference bench's BASELINE configs 2 (32 items of one
+   512-pubkey aggregate) and 3 (64 items of one 128-pubkey aggregate),
+   keys ``SkToPk(1..512)`` signed natively: every verdict True; verifies/s
+   split into host marshalling and device pairing, beside native
+   ``BatchFastAggregateVerify``, with K3/K4/K5 launches a batch (each
+   above 0) and K3's launch shapes, K3's first launch at each of them
+   held against its plain version.  Then a mixed batch of 64 from the
+   seed (valid items, wrong messages, other keys' signatures, malformed
+   pubkeys, empty pubkey lists, infinity signatures) whose every verdict
+   must equal native ``FastAggregateVerify``'s.
+8c. the reference's always-BLS cases of ``phase0/test_batch_verification.py``,
+   ``phase0/block_processing/test_process_attestation.py`` and
+   ``altair/test_sync_aggregate.py`` on CUDA-built minimal specs, under
+   the "native" backend and then the "torch" one: the same passed and
+   skipped counts, and K3 launched under "torch".
 
 The CPU legs take the boundary block's pre-state by its backing tree (no
 serialize round trip) and hash on the host (a CPU spec keeps the host
-hashing path), so they are independent of K2.  Every comparison is exact (tolerance 0): digests and roots are integers
-and bytes.  Then one JSON line of the kernels (launches on the path that
+hashing path), so they are independent of K2.  Every comparison is exact
+(tolerance 0): digests, roots, field limbs and verdicts are integers,
+bytes and booleans.  Then one JSON line of the kernels (launches on the path that
 drives each, error against the plain version, times on that path's
 shapes, the bound), the
 ``nvidia-smi`` line, and last the device line.  Any failed phase raises:
@@ -329,8 +356,18 @@ def kernel_ms_of(profiled, fragment: str):
 # -- phase 1 ----------------------------------------------------------------
 
 
+# the CUDA libraries phase 1 builds, one nvcc call each, all at once:
+# (label, module of the port, kernel names for the ptxas report)
+CUDA_LIBRARIES = (
+    ("K1 + K2", "consensus_specs_tpu_torch.ops.sha256", ()),
+    ("K3", "consensus_specs_tpu_torch.ops.bls.limbs", ("fq_mul_kernel",)),
+    ("K4 + K5", "consensus_specs_tpu_torch.ops.bls.pairing",
+     ("miller_dbl_run_kernel", "fq12_sq_run_kernel")),
+)
+
+
 def phase_device():
-    from consensus_specs_tpu_torch.ops import sha256
+    import importlib
 
     smi = nvidia_smi_line()
     print(f"card: {smi} ({torch.cuda.get_device_name(0)}, "
@@ -339,27 +376,40 @@ def phase_device():
           f"{torch.version.cuda}", flush=True)
     built = {}
 
-    def build_kernels():
+    def build(label, module):
         t0 = time.perf_counter()
-        built["path"] = sha256.build_kernel()
-        built["s"] = time.perf_counter() - t0
+        built[label] = (importlib.import_module(module).build_kernel(),
+                        time.perf_counter() - t0)
 
-    worker = threading.Thread(target=build_kernels)
-    worker.start()
+    for _, module, _ in CUDA_LIBRARIES:  # imported here, not in the threads
+        importlib.import_module(module)
+    workers = [threading.Thread(target=build, args=(label, module))
+               for label, module, _ in CUDA_LIBRARIES]
+    for worker in workers:
+        worker.start()
     t0 = time.perf_counter()
     from consensus_specs_tpu_torch.crypto import bls
 
     bls.use_native()  # builds the native BLS library with g++
     bls_s = time.perf_counter() - t0
-    worker.join()
-    if "path" not in built:
-        raise RuntimeError("K1/K2 build failed (see the thread's traceback above)")
-    print(f"K1 + K2 built in {built['s']:.3f} s (one nvcc call, sm_90a), "
-          f"native BLS in {bls_s:.3f} s, in parallel", flush=True)
-    with open(built["path"] + ".log") as log:
-        for line in log.read().splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill")):
-                print(f"  ptxas: {line.strip()}")
+    for worker in workers:
+        worker.join()
+    missing = [label for label, _, _ in CUDA_LIBRARIES if label not in built]
+    if missing:
+        raise RuntimeError(f"{missing} build failed (see the threads' "
+                           "tracebacks above)")
+    print("built in parallel: " + ", ".join(
+        f"{label} {built[label][1]:.3f} s" for label, _, _ in CUDA_LIBRARIES)
+        + f" (one nvcc call each, sm_90a), native BLS {bls_s:.3f} s", flush=True)
+    for label, _, kernels in CUDA_LIBRARIES:
+        log_path = built[label][0] + ".log"
+        lines = ([line for k in kernels for line in ptxas_report(log_path, k)]
+                 if kernels else
+                 [line.strip() for line in open(log_path).read().splitlines()
+                  if any(k in line for k in ("entry function", "registers",
+                                             "spill"))])
+        for line in lines:
+            print(f"  ptxas {label}: {line}")
     return smi
 
 
@@ -1396,6 +1446,448 @@ def phase_config_override(fork: str, n_validators: int, seed: int,
             "cpu_seconds": on_cpu["seconds"], "activated": override["activated"]}
 
 
+# -- phase 8a ---------------------------------------------------------------
+
+# Hopper's integer multiply-add rate: 64 lanes a clock on each SM, half
+# the float32 FMA rate (CUDA C programming guide, compute capability 9.0)
+IMAD_LANES_PER_SM_CLOCK = 64
+H100_SMS = 132
+PEAK_IMAD_PER_S = IMAD_LANES_PER_SM_CLOCK * H100_SMS * SM_CLOCK_HZ
+# K3 at this many products, K4 and K5 at the pairing batch of config 3
+K3_PRODUCTS = 1 << 20
+MILLER_B, MILLER_K, MILLER_N = 64, 2, 32
+MILLER_N_HOST = 2
+
+
+def multiplies(opcodes) -> int:
+    """The integer multiplies among SASS opcodes: IMAD and IMUL in all
+    their forms but those the compiler uses as a move, a shift or an add
+    (``IMAD.MOV``, ``IMAD.SHL``, ``IMAD.IADD``) or as an add's carry
+    (``IMAD.X``)."""
+    n = 0
+    for op, count in opcodes.items():
+        parts = op.split(".")
+        if parts[0] in ("IMAD", "IMUL") and not set(parts[1:]) & {
+                "MOV", "SHL", "IADD", "X"}:
+            n += count
+    return n
+
+
+def _residues(rng, shape) -> np.ndarray:
+    """Random Fq residues below p as canonical limbs (limb 14 below p's,
+    limb 15 zero), [*shape, 16] int64."""
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    out = rng.integers(0, 1 << limbs.LIMB_BITS, tuple(shape) + (limbs.N_LIMBS,))
+    out[..., 14] = rng.integers(0, int(limbs.P_LIMBS[14]), tuple(shape))
+    out[..., 15] = 0
+    return out
+
+
+def lazy_operands(n: int, seed: int) -> torch.Tensor:
+    """n Fq operands at the edge of K3's envelope, made on the card from
+    ``seed``: signed sums of up to 8 reduced residues (limbs |a_i| < 2^29,
+    values |a| < 8p), with 0, p, 36p and -36p in the first rows."""
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    acc = torch.zeros((n, limbs.N_LIMBS), dtype=torch.int64, device="cuda")
+    top = int(limbs.P_LIMBS[14])
+    for _ in range(8):
+        # residues below p: limb 14 below p's, limb 15 zero
+        r = torch.randint(0, 1 << limbs.LIMB_BITS, (n, limbs.N_LIMBS),
+                          generator=gen, device="cuda")
+        r[:, 14] = torch.randint(0, top, (n,), generator=gen, device="cuda")
+        r[:, 15] = 0
+        acc += torch.randint(-1, 2, (n, 1), generator=gen, device="cuda") * r
+    edges = np.stack([limbs.int_to_limbs(x) for x in
+                      (0, limbs.P_INT, 36 * limbs.P_INT)])
+    acc[:3] = torch.from_numpy(edges)
+    acc[3] = -torch.from_numpy(edges[2])
+    return acc
+
+
+def below(a: torch.Tensor, bound_limbs: np.ndarray) -> torch.Tensor:
+    """Canonical digits a < the canonical digits of a bound, per row."""
+    lt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    eq = torch.ones(a.shape[:-1], dtype=torch.bool, device=a.device)
+    for i in range(a.shape[-1] - 1, -1, -1):
+        lt |= eq & (a[..., i] < int(bound_limbs[i]))
+        eq &= a[..., i] == int(bound_limbs[i])
+    return lt
+
+
+def _canonical_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """max |canonical(got) - canonical(want)| over every limb; also
+    raises unless the limbs are equal bit for bit (the kernels compute the
+    plain versions' values)."""
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    err = int((limbs.canonical(got) - limbs.canonical(want)).abs().max())
+    if err == 0 and not torch.equal(got, want):
+        raise AssertionError("canonically equal but not the same limbs")
+    return err
+
+
+def kernel_only_ms(fn, fragment: str, calls: int, sees_device: bool):
+    """``torch.profiler`` device ms a call of the kernels named by
+    ``fragment``, or None where the profiler sees no device time or, three
+    times over, not these kernels (late in a long run it has missed a
+    kernel it records in a short one; the CUDA-event time stands)."""
+    if not sees_device:
+        return None
+    got = retried(lambda: kernel_ms_of(profiled_kernel_ms(fn, calls), fragment))
+    if got is None:
+        print(f"  profiler: {fragment} not recorded in three tries", flush=True)
+        return None
+    return got[0]
+
+
+def phase_bls_kernels(seed: int) -> dict:
+    """8a: K3 at 2^20 operand pairs at the edge of its envelope, K4 and K5
+    at B = 64, K = 2, n = 32 from random residues, each against its plain
+    version on the same inputs: canonical values equal (and the limbs,
+    bit for bit), K3's output contract held, times and bounds."""
+    from consensus_specs_tpu_torch.ops.bls import limbs, pairing
+
+    out = {}
+    # -- K3
+    a = lazy_operands(K3_PRODUCTS, seed)
+    b = lazy_operands(K3_PRODUCTS, seed + 1)
+    got = limbs.mul(a, b)
+    want = limbs.mul_plain(a, b)
+    torch.cuda.synchronize()
+    err = _canonical_err(got, want)
+    if err:
+        raise AssertionError(f"K3 != plain: max canonical |diff| {err}")
+    digits_ok = bool(((got >= 0) & (got <= limbs.MASK)).all())
+    below_3p = bool(below(got, limbs.int_to_limbs(3 * limbs.P_INT)).all())
+    if not (digits_ok and below_3p):
+        raise AssertionError(f"K3's output contract: digits in range "
+                             f"{digits_ok}, values below 3p {below_3p}")
+    # asked up to three times: late in a long run the profiler has missed
+    # the probe's kernel once where it saw K2's earlier in the same process
+    sees_device = any(profiler_sees_device() for _ in range(3))
+    k3_ms = cuda_ms(lambda: limbs.mul(a, b), iters=20)
+    k3_kernel = kernel_only_ms(lambda: limbs.mul(a, b), "fq_mul_kernel", 10,
+                               sees_device)
+    plain_ms = cuda_ms(lambda: limbs.mul_plain(a, b), iters=3, warmup=1)
+    kernels = sass_kernels(limbs.build_kernel())
+    names = [k for k in (kernels or {}) if "fq_mul_kernel" in k]
+    if kernels is not None and not names:
+        raise AssertionError("cuobjdump shows no fq_mul_kernel (K3)")
+    per_product = multiplies(kernels[names[0]][0]) if names else None
+    if per_product is not None:
+        ops = kernels[names[0]][0]
+        print(f"SASS K3 ({sum(ops.values())} instructions, static; the "
+              f"kernel is straight-line): {per_product} multiplies a "
+              f"product; by pipe {by_pipe(ops)}; opcodes: "
+              + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)),
+              flush=True)
+    out["k3"] = _kernel_numbers(
+        "K3", K3_PRODUCTS * limbs.BYTES_PER_PRODUCT, K3_PRODUCTS, per_product,
+        err, k3_ms, k3_kernel, plain_ms)
+    print(f"K3 == plain at N=2^20 (canonical and limb for limb; digits in "
+          f"[0, 2^26), values below 3p): {out['k3']['line']}", flush=True)
+
+    # -- K4 and K5
+    rng = np.random.default_rng(seed + 2)
+    B, K, n = MILLER_B, MILLER_K, MILLER_N
+
+    def res(*shape):
+        return torch.from_numpy(_residues(rng, shape))
+
+    host = [res(B, 6, 2), res(K, B, 2), res(K, B, 2), res(K, B, 2),
+            res(K, B), res(K, B)]
+    dev = [t.cuda() for t in host]
+    got4 = pairing._dbl_run(*dev, n)
+    on_card = pairing._dbl_run_plain(*dev, n)
+    got5 = pairing._sq_run(dev[0], n)
+    on_card5 = pairing._sq_run_plain(dev[0], n)
+    on_host5 = pairing._sq_run_plain(host[0], n)
+    # all-torch anchors on the host (K4's at MILLER_N_HOST steps: its plain
+    # version costs seconds a step there)
+    short4 = pairing._dbl_run(*dev, MILLER_N_HOST)
+    on_host4 = pairing._dbl_run_plain(*host, MILLER_N_HOST)
+    torch.cuda.synchronize()
+    err4 = max(_canonical_err(g, w) for g, w in zip(got4, on_card))
+    err4 = max(err4, max(_canonical_err(g, w.cuda())
+                         for g, w in zip(short4, on_host4)))
+    err5 = max(_canonical_err(got5, on_card5),
+               _canonical_err(got5, on_host5.cuda()))
+    if err4 or err5:
+        raise AssertionError(f"K4 / K5 != plain: max canonical |diff| "
+                             f"{err4} / {err5}")
+    print(f"K4 and K5 == plain at B={B}, K={K}, n={n} (canonical and limb "
+          f"for limb; the plain versions on the card, whose products are K3 "
+          f"launches, and on the host, all torch, K4's there at "
+          f"n={MILLER_N_HOST})", flush=True)
+    k4 = lambda: pairing._dbl_run(*dev, n)  # noqa: E731
+    k5 = lambda: pairing._sq_run(dev[0], n)  # noqa: E731
+    k4_ms = cuda_ms(k4, iters=3, warmup=1)
+    k5_ms = cuda_ms(k5, iters=3, warmup=1)
+    k4_kernel = kernel_only_ms(k4, "miller_dbl_run_kernel", 3, sees_device)
+    k5_kernel = kernel_only_ms(k5, "fq12_sq_run_kernel", 3, sees_device)
+    plain4_ms = cuda_ms(lambda: pairing._dbl_run_plain(*dev, n), iters=1, warmup=1)
+    plain5_ms = cuda_ms(lambda: pairing._sq_run_plain(dev[0], n), iters=1,
+                        warmup=1)
+    products4 = B * n * (pairing.PRODUCTS_FQ12_SQUARE
+                         + K * pairing.PRODUCTS_DBL_STEP_PER_PAIR)
+    products5 = B * n * pairing.PRODUCTS_FQ12_SQUARE
+    bytes4 = 8 * (2 * sum(t.numel() for t in dev[:4]) + dev[4].numel()
+                  + dev[5].numel())
+    bytes5 = 8 * 2 * dev[0].numel()
+    out["k4"] = _kernel_numbers("K4", bytes4, products4, per_product, err4,
+                                k4_ms, k4_kernel, plain4_ms)
+    out["k5"] = _kernel_numbers("K5", bytes5, products5, per_product, err5,
+                                k5_ms, k5_kernel, plain5_ms)
+    print(f"K4 at B={B}, K={K}, n={n} ({products4} products): "
+          f"{out['k4']['line']}", flush=True)
+    print(f"K5 at B={B}, n={n} ({products5} products): {out['k5']['line']}",
+          flush=True)
+    return out
+
+
+def _kernel_numbers(label, n_bytes, products, per_product, err, ms,
+                    kernel_ms, plain_ms) -> dict:
+    """A kernel's numbers for the kernels line, and their printed form:
+    the bound is the larger of its bytes at the HBM rate and its
+    multiplies (products x the SASS multiplies of one K3 product) at the
+    integer multiply-add rate."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (None if per_product is None
+              else products * per_product / PEAK_IMAD_PER_S * 1e3)
+    if ops_ms is not None and ops_ms >= bytes_ms:
+        bound, by = ops_ms, "operations"
+    else:
+        bound, by = bytes_ms, "bytes"
+    kernel_text = ("not measured (the profiler recorded no time for it)"
+                   if kernel_ms is None else f"{kernel_ms:.5f} ms")
+    ops_text = "not measured (no SASS)" if ops_ms is None else f"{ops_ms:.5f}"
+    line = (f"{label} {ms:.5f} ms (CUDA events), kernel only {kernel_text}; "
+            f"plain {plain_ms:.3f} ms; bound {bound:.5f} ms ({by}; bytes "
+            f"{bytes_ms:.5f}, multiplies {ops_text})")
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "line": line}
+
+
+# -- phase 8b ---------------------------------------------------------------
+
+# the reference bench's BASELINE configs 2 and 3 (bench.py, bench_bls_batches)
+BLS_MESSAGE = b"\x42" * 32
+BLS_CONFIGS = (("config 2: sync aggregate", 512, 32),
+               ("config 3: attestations", 128, 64))
+MIXED_BATCH = 64
+
+
+def _bls_counts() -> dict:
+    from consensus_specs_tpu_torch.ops.bls import limbs, pairing
+
+    return {"K3": limbs.counts["fq_mul"],
+            "K4": pairing.counts["miller_dbl_run"],
+            "K5": pairing.counts["fq12_sq_run"]}
+
+
+def _reset_bls_counts() -> None:
+    from consensus_specs_tpu_torch.ops.bls import limbs, pairing
+
+    limbs.reset_counts()
+    pairing.reset_counts()
+
+
+def device_batch(pubkeys_lists, messages, signatures) -> dict:
+    """One ``batch_fast_aggregate_verify`` pass on the card, split into its
+    host marshalling and its device pairing check, with the launches it
+    made (counts zeroed just before it)."""
+    from consensus_specs_tpu_torch.ops import bls as device_bls
+
+    _reset_bls_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, todo = device_bls.marshal_fast_aggregate_items(
+        pubkeys_lists, messages, signatures)
+    t1 = time.perf_counter()
+    verdicts = device_bls.batch_fast_aggregate_verify(
+        pubkeys_lists, messages, signatures)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"verdicts": verdicts, "marshal_s": t1 - t0,
+            # the second call marshals again (cached decompressions): its
+            # pairing share is the call less the marshalling just timed
+            "pairing_s": (t2 - t1) - (t1 - t0), "call_s": t2 - t1,
+            "launches": _bls_counts(), "todo": len(todo)}
+
+
+def phase_bls_batches(seed: int) -> dict:
+    """8b: BASELINE configs 2 and 3 at full size through
+    ``ops.bls.batch_fast_aggregate_verify`` on the card (every verdict
+    True), beside native ``BatchFastAggregateVerify``; then a mixed batch
+    whose every verdict must equal native ``FastAggregateVerify``'s."""
+    from consensus_specs_tpu_torch.crypto.bls import native
+
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    sks = list(range(1, 513))
+    pks = [native.SkToPk(sk) for sk in sks]
+    out = {}
+    for label, n_keys, batch in BLS_CONFIGS:
+        agg = native.Aggregate([native.Sign(sk, BLS_MESSAGE)
+                                for sk in sks[:n_keys]])
+        args = ([pks[:n_keys]] * batch, [BLS_MESSAGE] * batch, [agg] * batch)
+        first = device_batch(*args)  # decompressions and subgroup checks
+        # keep K3's first launch at each shape of the timed batch, to hold
+        # it against the plain version at the path's own shapes
+        seen, launch_k3 = {}, limbs._launch_k3
+
+        def recording_k3(a, b):
+            got = launch_k3(a, b)
+            seen.setdefault(got.numel() // limbs.N_LIMBS,
+                            (a.clone(), b.clone(), got.clone()))
+            return got
+
+        limbs._launch_k3 = recording_k3
+        try:
+            run = device_batch(*args)
+        finally:
+            limbs._launch_k3 = launch_k3
+        for a, b, got in seen.values():
+            if not torch.equal(got, limbs.mul_plain(a, b)):
+                raise AssertionError(f"{label}: K3 != plain at "
+                                     f"{got.numel() // limbs.N_LIMBS} products")
+        shapes = dict(sorted(limbs.launch_shapes.items()))
+        if not (all(first["verdicts"]) and all(run["verdicts"])):
+            raise AssertionError(f"{label}: a valid item failed on the card")
+        if min(run["launches"].values()) <= 0:
+            raise AssertionError(f"{label}: launches {run['launches']}")
+        items = [(pks[:n_keys], BLS_MESSAGE, agg)] * batch
+        t0 = time.perf_counter()
+        if not native.BatchFastAggregateVerify(items):
+            raise AssertionError(f"{label}: native batch verify failed")
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for pk_set, msg, sig in items:
+            native.FastAggregateVerify(pk_set, msg, sig)  # noqa: ST01 sequential baseline
+        native_seq_s = time.perf_counter() - t0
+        run.update(batch=batch, keys=n_keys, native_s=native_s,
+                   native_seq_s=native_seq_s, first_s=first["call_s"])
+        out[label] = run
+        print(f"{label} ({batch} items of {n_keys} pubkeys, every verdict "
+              f"True): device {batch / run['call_s']:.1f} verifies/s "
+              f"({run['call_s']:.3f} s: marshalling {run['marshal_s']:.3f} s "
+              f"host, pairing {run['pairing_s']:.3f} s device; first call "
+              f"{first['call_s']:.3f} s with the decompressions); native "
+              f"BatchFastAggregateVerify {batch / native_s:.1f} verifies/s "
+              f"({native_s:.3f} s), native sequential "
+              f"{batch / native_seq_s:.1f}; launches a batch {run['launches']}; "
+              f"K3's launch shapes (products: launches) {shapes}, K3 == plain "
+              f"limb for limb at each", flush=True)
+
+    # the mixed batch: each kind of item the verifier must tell apart
+    rng = np.random.default_rng(seed)
+    kinds = ("valid", "wrong message", "other key", "malformed pubkey",
+             "empty pubkeys", "infinity signature")
+    pubkeys_lists, messages, signatures, labels = [], [], [], []
+    for i in range(MIXED_BATCH):
+        # two of each kind, then valid items and the kinds the device
+        # decides (an infinity signature goes to the host oracle, about
+        # half a second each)
+        kind = kinds[i % len(kinds)] if i < 2 * len(kinds) else (
+            "valid" if rng.random() < 0.5 else kinds[rng.integers(1, len(kinds) - 1)])
+        chosen = sorted(rng.choice(512, size=int(rng.integers(1, 129)),
+                                   replace=False).tolist())
+        keys = [pks[j] for j in chosen]
+        message = rng.bytes(32)
+        secret = sum(sks[j] for j in chosen)
+        signature = native.Sign(secret, message)
+        if kind == "wrong message":
+            signature = native.Sign(secret, rng.bytes(32))
+        elif kind == "other key":
+            signature = native.Sign(secret + 1, message)
+        elif kind == "malformed pubkey":
+            keys[int(rng.integers(0, len(keys)))] = b"\xff" * 48
+        elif kind == "empty pubkeys":
+            keys = []
+        elif kind == "infinity signature":
+            from consensus_specs_tpu_torch.ops import bls as device_bls
+
+            signature = device_bls.G2_POINT_AT_INFINITY
+        pubkeys_lists.append(keys)
+        messages.append(message)
+        signatures.append(signature)
+        labels.append(kind)
+    run = device_batch(pubkeys_lists, messages, signatures)
+    want = [bool(native.FastAggregateVerify(k, m, s))  # noqa: ST01 per-item reference verdicts
+            for k, m, s in zip(pubkeys_lists, messages, signatures)]
+    if run["verdicts"] != want:
+        bad = [(i, labels[i]) for i in range(MIXED_BATCH)
+               if run["verdicts"][i] != want[i]]
+        raise AssertionError(f"mixed batch differs from native at {bad}")
+    tally = {k: labels.count(k) for k in kinds}
+    print(f"mixed batch of {MIXED_BATCH} from seed {seed} ({tally}): every "
+          f"verdict equals native FastAggregateVerify's ({sum(want)} True); "
+          f"{run['call_s']:.3f} s, launches {run['launches']}", flush=True)
+    out["mixed"] = run
+    return out
+
+
+# -- phase 8c ---------------------------------------------------------------
+
+BLS_CASE_FILES = ("phase0/test_batch_verification.py",
+                  "phase0/block_processing/test_process_attestation.py",
+                  "altair/test_sync_aggregate.py")
+
+
+def phase_bls_spec_cases(device: str = "cuda") -> dict:
+    """8c: the always-BLS cases of ``BLS_CASE_FILES`` on specs built for
+    ``device``, under the "native" backend and then the "torch" one: the
+    same passed and skipped counts, and K3 launched under "torch"."""
+    from consensus_specs_tpu_torch.testing import context, reference_cases
+    from consensus_specs_tpu_torch.testing.exceptions import SkippedTest
+
+    selected = [(f, n) for f in BLS_CASE_FILES
+                for n in reference_cases.always_bls_case_names(f)]
+    is_pytest, context.is_pytest = context.is_pytest, False
+    tallies = {}
+    try:
+        for backend in ("native", "torch"):
+            tally = {"passed": 0, "skipped": 0}
+            _reset_bls_counts()
+            t0 = time.perf_counter()
+            with reference_cases.configured(device, bls_backend=backend):
+                for relpath, name in selected:
+                    try:
+                        reference_cases.cases(relpath)[name]()
+                    except SkippedTest:
+                        tally["skipped"] += 1
+                        continue
+                    except BaseException:
+                        print(f"spec case failed under {backend}: "
+                              f"{relpath}::{name}", flush=True)
+                        raise
+                    tally["passed"] += 1
+            if device != "cpu":
+                torch.cuda.synchronize()
+            tally.update(seconds=time.perf_counter() - t0,
+                         launches=_bls_counts())
+            tallies[backend] = tally
+    finally:
+        context.is_pytest = is_pytest
+    print(f"always-BLS spec cases ({len(selected)} in {len(BLS_CASE_FILES)} "
+          "files) on " + device + "-built specs: " + "; ".join(
+              f"{b} {t['passed']} passed, {t['skipped']} skipped in "
+              f"{t['seconds']:.3f} s, launches {t['launches']}"
+              for b, t in tallies.items()), flush=True)
+    native_t, torch_t = tallies["native"], tallies["torch"]
+    if (native_t["passed"], native_t["skipped"]) != (torch_t["passed"],
+                                                      torch_t["skipped"]):
+        raise AssertionError("the torch backend's case counts differ from "
+                             "native's")
+    if device != "cpu" and torch_t["launches"]["K3"] <= 0:
+        raise AssertionError("the spec cases launched K3 no time")
+    return tallies
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1440,6 +1932,12 @@ def main(argv=None) -> int:
     for fork in OVERRIDE_FORKS:
         with _phase(f"7b {fork} config-override epoch at {N_VALIDATORS} validators"):
             override[fork] = phase_config_override(fork, N_VALIDATORS, args.seed)
+    with _phase("8a K3, K4, K5 vs plain"):
+        bls_kernels = phase_bls_kernels(args.seed)
+    with _phase("8b device BLS: BASELINE configs 2 and 3, a mixed batch"):
+        bls_batches = phase_bls_batches(args.seed)
+    with _phase("8c always-BLS spec cases under the torch backend"):
+        bls_cases = phase_bls_spec_cases()
 
     k1_entry = {
         "name": "sha256_block64",
@@ -1481,7 +1979,38 @@ def main(argv=None) -> int:
         "kernel_ms": k2["kernel_ms"],
         "per_level_route_ms": k2["per_level_route_ms"],
     }
-    print(json.dumps({"kernels": [k1_entry, k2_entry]}))
+    bls_entries = []
+    for label, key, name, source, replaces in (
+            ("K3", "k3", "fq_mul", "consensus_specs_tpu_torch/csrc/bls_fq.cu",
+             "consensus_specs_tpu/ops/bls_jax/limbs.py:145"),
+            ("K4", "k4", "miller_dbl_run",
+             "consensus_specs_tpu_torch/csrc/bls_miller.cu",
+             "consensus_specs_tpu/ops/bls_jax/pairing.py:119"),
+            ("K5", "k5", "fq12_sq_run",
+             "consensus_specs_tpu_torch/csrc/bls_miller.cu",
+             "consensus_specs_tpu/ops/bls_jax/pairing.py:146")):
+        numbers = bls_kernels[key]
+        bls_entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            # BASELINE config 3's batch (phase 8b): 64 items of 128 pubkeys
+            # through ops.bls.batch_fast_aggregate_verify on the card
+            "launches": bls_batches[BLS_CONFIGS[1][0]]["launches"][label],
+            "launches_config2": bls_batches[BLS_CONFIGS[0][0]]["launches"][label],
+            "launches_mixed_batch": bls_batches["mixed"]["launches"][label],
+            "launches_spec_cases": bls_cases["torch"]["launches"][label],
+            "max_abs_err": numbers["max_abs_err"],
+            "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"],
+            "bound_ms": numbers["bound_ms"],
+            "bound_by": numbers["bound_by"],
+            # PyTorch has no field multiply, Miller loop or Fq12 power
+            "library_ms": None,
+            "kernel_ms": numbers["kernel_ms"],
+        })
+    print(json.dumps({"kernels": [k1_entry, k2_entry, *bls_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

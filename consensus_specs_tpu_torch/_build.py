@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 from typing import Callable, Sequence
@@ -56,3 +57,30 @@ def build_shared(stem: str, sources: Sequence[str],
         if os.path.exists(tmp_path):
             os.unlink(tmp_path)
     return so_path
+
+
+# one nvcc call builds one library of sm_90a kernels with a plain C
+# interface; -Xptxas -v puts each kernel's registers and spills in its log
+NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    local = "/usr/local/cuda/bin/nvcc"
+    found = shutil.which("nvcc") or (local if os.path.exists(local) else None)
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return found
+
+
+def build_cuda(stem: str, cu_sources: Sequence[str],
+               headers: Sequence[str] = ()) -> str:
+    """``build_shared`` for CUDA sources: one nvcc call for sm_90a compiles
+    ``cu_sources`` into one library, rebuilt when a source or one of the
+    ``headers`` changes."""
+    compiler = nvcc()
+    return build_shared(
+        stem, tuple(cu_sources) + tuple(headers),
+        lambda out: [compiler, *NVCC_FLAGS, *cu_sources, "-o", out],
+        flags=NVCC_FLAGS)

@@ -12,13 +12,21 @@ Backends:
   * "python": the from-scratch pure-Python oracle in this package
   * "native": from-scratch C++ (crypto/bls/native/), the fast host path —
     the role the reference fills with its Rust milagro binding
-
-The device BLS backend waits for its own slice of the port (ROADMAP
-queue A, item 12).
+  * "torch": the batched device pipeline (``ops/bls``), the card's
+    backend and the counterpart of the reference's "jax" — registered
+    lazily.  Its pairing checks run on the CUDA card (``ops.bls.set_device``
+    picks another device; without a card it raises).  There is no
+    fallback to the host: a kernel that fails, or a missing card, raises
+    ``ops.sha256.KernelError``, which the Verify-family wrappers let
+    through instead of turning it into a False verdict.  The one host
+    path is the reference's own: a batch item carrying a point at
+    infinity goes to the pure-Python pairing oracle.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
+
+from consensus_specs_tpu_torch.ops.sha256 import KernelError
 
 from . import ciphersuite as _py_backend
 
@@ -41,6 +49,10 @@ def register_backend(name: str, module) -> None:
 
 def use_backend(name: str) -> None:
     global bls, _backend_name
+    if name == "torch" and "torch" not in _backends:
+        from consensus_specs_tpu_torch.ops import bls as device_bls
+
+        register_backend("torch", device_bls.backend())
     if name == "native" and "native" not in _backends:
         from . import native
 
@@ -55,6 +67,10 @@ def use_python() -> None:
 
 def use_native() -> None:
     use_backend("native")
+
+
+def use_torch() -> None:
+    use_backend("torch")
 
 
 def backend_name() -> str:
@@ -84,6 +100,8 @@ def Verify(PK, message, signature):
     tracing.count("bls.verify")
     try:
         return bls.Verify(PK, message, signature)
+    except KernelError:
+        raise
     except Exception:
         return False
 
@@ -92,6 +110,8 @@ def Verify(PK, message, signature):
 def AggregateVerify(pubkeys, messages, signature):
     try:
         return bls.AggregateVerify(pubkeys, messages, signature)
+    except KernelError:
+        raise
     except Exception:
         return False
 
@@ -110,6 +130,8 @@ def FastAggregateVerify(pubkeys, message, signature):
         return True  # optimistic; settled at scope exit
     try:
         return bls.FastAggregateVerify(pubkeys, message, signature)
+    except KernelError:
+        raise
     except Exception:
         return False
 
@@ -137,12 +159,16 @@ def _batch_verify(entries) -> bool:
     if backend_batch is not None:
         try:
             return bool(backend_batch(entries))
+        except KernelError:
+            raise
         except Exception:
             return False
     for pks, msg, sig in entries:  # backends without a batch API
         try:
             if not bls.FastAggregateVerify(pks, msg, sig):
                 return False
+        except KernelError:
+            raise
         except Exception:
             return False
     return True

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 from typing import List
 
 import numpy as np
@@ -162,18 +161,8 @@ _CU_SOURCES = tuple(os.path.join(_CSRC_DIR, name)
 # everything the library is built from, the shared header included: the
 # build digest covers all of it, so an edited header rebuilds
 SOURCES = _CU_SOURCES + (os.path.join(_CSRC_DIR, "sha256_core.cuh"),)
-_NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_NVCC_FLAGS = _build.NVCC_FLAGS
 _lib = None
-
-
-def _nvcc() -> str:
-    local = "/usr/local/cuda/bin/nvcc"
-    found = shutil.which("nvcc") or (local if os.path.exists(local) else None)
-    if found is None:
-        raise RuntimeError("nvcc not found: the SHA-256 kernels build only "
-                           "where the CUDA toolkit is installed")
-    return found
 
 
 def build_kernel() -> str:
@@ -181,11 +170,7 @@ def build_kernel() -> str:
     directory (once per source digest) and return the library's path.  The
     compiler's report (registers, spills) is kept beside it as
     ``<library>.log``."""
-    nvcc = _nvcc()
-    return _build.build_shared(
-        "sha256", SOURCES,
-        lambda out: [nvcc, *_NVCC_FLAGS, *_CU_SOURCES, "-o", out],
-        flags=_NVCC_FLAGS)
+    return _build.build_cuda("sha256", _CU_SOURCES, SOURCES[len(_CU_SOURCES):])
 
 
 def _library() -> ctypes.CDLL:

@@ -93,6 +93,17 @@ def case_names(relpath: str) -> List[str]:
     return names
 
 
+def always_bls_case_names(relpath: str) -> List[str]:
+    """The file's cases decorated with ``always_bls`` (they check
+    signatures whatever the context's BLS default), read from its syntax
+    tree, in their order."""
+    marked = {node.name for node in _tree(CASES_ROOT / relpath).body
+              if isinstance(node, ast.FunctionDef)
+              and any(getattr(d, "id", None) == "always_bls"
+                      for d in node.decorator_list)}
+    return [name for name in case_names(relpath) if name in marked]
+
+
 def _port_module_exists(name: str) -> bool:
     path = REPO_ROOT.joinpath(*name.split("."))
     return path.with_suffix(".py").is_file() or (path / "__init__.py").is_file()
@@ -243,26 +254,34 @@ def cases(relpath: str) -> Dict[str, Callable]:
 
 @contextlib.contextmanager
 def configured(device, preset: str = "minimal", forks=None,
-               bls_active: bool = True):
+               bls_active: bool = True, bls_backend: str = "native"):
     """The context builds its specs for ``device`` at ``preset``, runs the
     given forks (None: every fork the port builds) and checks signatures
-    with the native backend unless ``bls_active`` is False; every global
-    it sets is restored on exit."""
+    with ``bls_backend`` (the native host backend by default; "torch", the
+    device backend, runs its pairing checks on ``device`` too) unless
+    ``bls_active`` is False; every global it sets is restored on exit."""
     from consensus_specs_tpu_torch.crypto import bls
     from consensus_specs_tpu_torch.testing import context
 
     saved = (context.DEFAULT_TEST_PRESET, context.DEFAULT_PYTEST_FORKS,
              context.DEFAULT_BLS_ACTIVE, bls.backend_name(), bls.bls_active)
     previous_device = context.set_spec_device(device)
+    device_bls, previous_bls_device = None, None
     try:
         context.DEFAULT_TEST_PRESET = preset
         if forks is not None:
             context.DEFAULT_PYTEST_FORKS = tuple(forks)
         context.DEFAULT_BLS_ACTIVE = bls_active
         if bls_active:
-            bls.use_native()
+            if bls_backend == "torch":
+                from consensus_specs_tpu_torch.ops import bls as device_bls
+
+                previous_bls_device = device_bls.set_device(device)
+            bls.use_backend(bls_backend)
         yield
     finally:
+        if device_bls is not None:
+            device_bls.set_device(previous_bls_device)
         context.set_spec_device(previous_device)
         (context.DEFAULT_TEST_PRESET, context.DEFAULT_PYTEST_FORKS,
          context.DEFAULT_BLS_ACTIVE) = saved[:3]

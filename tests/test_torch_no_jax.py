@@ -5,7 +5,8 @@
   minimal phase0, altair, bellatrix and capella specs on the CPU (a
   subprocess, because the test session itself imports jax); through the
   port's ``testing/`` it then loads one of the reference's spec case
-  files and runs its config-override case on a CPU-built spec;
+  files and runs its config-override case on a CPU-built spec, and the
+  device BLS backend (``ops/bls``) decides one batch on the CPU;
 * a static scan of the port's sources finds no such import;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
@@ -66,6 +67,12 @@ cases = reference_cases.cases("phase0/sanity/test_slots.py")
 with reference_cases.configured("cpu", forks=("phase0",), bls_active=False):
     cases["test_epoch_ejections_under_raised_ejection_balance"]()
 assert context.spec_device() is None
+# the device BLS backend decides a batch (its plain pipeline on the CPU)
+from consensus_specs_tpu_torch.crypto.bls import native
+from consensus_specs_tpu_torch.ops import bls as device_bls
+pk, sig = native.SkToPk(3), native.Sign(3, b"no jax")
+assert device_bls.batch_fast_aggregate_verify(
+    [[pk], [pk]], [b"no jax", b"other"], [sig, sig], device="cpu") == [True, False]
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))
