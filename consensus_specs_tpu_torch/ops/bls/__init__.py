@@ -19,8 +19,8 @@ aggregate of 512 pubkeys (altair/beacon-chain.md);
 
 The device is explicit, as at every entry point of the port: None (the
 default) means the CUDA card, and a host without one raises.  Tests ask
-for the CPU with ``set_device("cpu")`` or ``device="cpu"`` and restore
-the previous device afterwards.  There is no fallback to the host: a
+for the CPU with ``set_device("cpu")`` and restore the previous device
+afterwards.  There is no fallback to the host: a
 kernel that fails raises ``ops.sha256.KernelError``.  The one host path
 is the reference's own: a batch item that carries a point at infinity
 (an infinity signature, say) is decided by the pure-Python pairing
@@ -83,13 +83,13 @@ def set_device(device) -> object:
     return previous
 
 
-def pairing_device(requested=None):
-    """The device the pairing checks run on: ``requested``, else the
-    module's (``set_device``), where None is the card.  Without a card it
-    raises ``KernelError``: the device path cannot run, and the selector
-    lets that through rather than call it an invalid signature."""
+def pairing_device():
+    """The device the pairing checks run on: the module's (``set_device``),
+    where None is the card.  Without a card it raises ``KernelError``: the
+    device path cannot run, and the selector lets that through rather than
+    call it an invalid signature."""
     try:
-        return resolve_device(_device if requested is None else requested)
+        return resolve_device(_device)
     except RuntimeError as exc:
         raise KernelError(f"the device BLS backend cannot run: {exc}") from exc
 
@@ -219,15 +219,14 @@ def batch_fast_aggregate_verify(
     pubkeys_lists: Sequence[Sequence[bytes]],
     messages: Sequence[bytes],
     signatures: Sequence[bytes],
-    device=None,
 ) -> List[bool]:
-    """One device pass deciding FastAggregateVerify for B items, on
-    ``device`` (None: the module's device, ``set_device``).
+    """One device pass deciding FastAggregateVerify for B items, on the
+    module's device (``set_device``).
 
     Malformed/out-of-subgroup inputs, infinity pubkeys, and empty pubkey
     lists yield False for that item (never an exception), mirroring the
     selector's Verify-family contract (crypto/bls/__init__.py)."""
-    dev = pairing_device(device)
+    dev = pairing_device()
     results, todo = marshal_fast_aggregate_items(
         pubkeys_lists, messages, signatures)
     if todo:
@@ -252,11 +251,10 @@ def batch_verify(
     pubkeys: Sequence[bytes],
     messages: Sequence[bytes],
     signatures: Sequence[bytes],
-    device=None,
 ) -> List[bool]:
     """One device pass deciding single-pubkey Verify for B items."""
     return batch_fast_aggregate_verify(
-        [[pk] for pk in pubkeys], messages, signatures, device)
+        [[pk] for pk in pubkeys], messages, signatures)
 
 
 # ciphersuite-compatible scalar API ------------------------------------------

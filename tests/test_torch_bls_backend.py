@@ -69,17 +69,17 @@ def test_batch_fast_aggregate_verify_mixed(keys, on_cpu):
     ) == [got[items.index(i)] for i in host]
 
 
-def test_batch_verify_and_empty_batches(keys):
+def test_batch_verify_and_empty_batches(keys, on_cpu):
     pks, sigs, _ = keys
     got = device_bls.batch_verify([pks[0], pks[1]], [MSG, MSG],
-                                  [sigs[0], sigs[0]], device="cpu")
+                                  [sigs[0], sigs[0]])
     assert got == [True, False]
     assert got == [native.Verify(pks[0], MSG, sigs[0]),
                    native.Verify(pks[1], MSG, sigs[0])]
-    assert device_bls.batch_fast_aggregate_verify([], [], [], device="cpu") == []
+    assert device_bls.batch_fast_aggregate_verify([], [], []) == []
     # nothing structurally valid: no pairing check runs
     assert device_bls.batch_fast_aggregate_verify(
-        [[]], [MSG], [sigs[0]], device="cpu") == [False]
+        [[]], [MSG], [sigs[0]]) == [False]
 
 
 def test_scalar_api(keys, on_cpu):

@@ -2,16 +2,20 @@
 package's (``ops/bls_jax/pairing.py``) at K = 2 pairs and B = 2 items,
 the shapes the JAX package's own tests compile, and against the oracle.
 
-* the Miller doubling and addition steps, the doubling run at n = 1 and
-  at the longest segment of |x|, and the squaring run: equal to the JAX
-  package's limb for limb (tolerance 0: every output is an integer);
+* the Miller doubling and addition steps and the squaring run: equal to
+  the JAX package's limb for limb (tolerance 0: every output is an
+  integer);
+* the doubling run at n = 1 and at the longest segment of |x|, on real
+  points: T against the oracle's doublings, f against the oracle's Fq12
+  products of each step's lines;
 * the whole product check on signature pairs: its verdicts are the
   signatures' (one valid, one on another message), and every operand pair the pipeline hands to ``limbs.mul``
   lies in the envelope K3 takes (limbs below 2^29, products below R*p);
 * the HHT identity the final exponentiation rests on, exactly;
-* ``slow``: the Miller product and the final exponentiation against the
-  JAX package's whole pipeline (about 20 s of XLA compiles and cache
-  loads on the CPU, on top of the port's run);
+* ``slow``: the doubling run, the Miller product and the final
+  exponentiation against the JAX package's jitted pipeline (about 6 s of
+  XLA cache loads a process for the run alone, 20 s for the whole
+  pipeline, on the CPU);
 * ``cuda``: K4 and K5 against their plain versions on the card.
 """
 import numpy as np
@@ -22,8 +26,9 @@ import jax.numpy as jnp
 
 from consensus_specs_tpu.ops.bls_jax import pairing as ref
 from consensus_specs_tpu_torch.crypto.bls import native
-from consensus_specs_tpu_torch.crypto.bls.curve import g1_generator, pubkey_to_point, signature_to_point
-from consensus_specs_tpu_torch.crypto.bls.fields import P, R, X_PARAM
+from consensus_specs_tpu_torch.crypto.bls.curve import (
+    g1_generator, g2_generator, pubkey_to_point, signature_to_point)
+from consensus_specs_tpu_torch.crypto.bls.fields import Fq2, Fq6, Fq12, P, R, X_PARAM
 from consensus_specs_tpu_torch.ops import bls as device_bls
 from consensus_specs_tpu_torch.ops.bls import limbs, pairing, tower
 
@@ -82,8 +87,56 @@ def test_dbl_and_add_steps(state):
     assert_equal(port(pairing._add_step, *args), jax_run(ref._add_step, *args))
 
 
-@pytest.mark.parametrize("n", [1, max(n for n, _ in pairing._SEGMENTS)])
+LONGEST_RUN = max(n for n, _ in pairing._SEGMENTS)
+
+
+def oracle_fq2(a) -> Fq2:
+    return Fq2(limbs.host_from_mont(a[0]), limbs.host_from_mont(a[1]))
+
+
+@pytest.mark.parametrize("n", [1, LONGEST_RUN])
 def test_dbl_run(state, n):
+    """n doublings of real points: T ends at 2^n T in the oracle's group
+    law (homogeneous projective, x = X/Z), and f at f^(2^n) times every
+    step's lines, multiplied in the oracle's Fq12 (the lines themselves
+    are the JAX package's, by ``test_dbl_and_add_steps``)."""
+    qs = [[g2_generator().mul(3 + 2 * k + b) for b in range(B)] for k in range(K)]
+    ps = [[g1_generator().mul(5 + 2 * k + b) for b in range(B)] for k in range(K)]
+    X = np.zeros((K, B, 2, limbs.N_LIMBS), dtype=np.int64)
+    Y, Z = np.zeros_like(X), np.zeros_like(X)
+    px = np.zeros((K, B, limbs.N_LIMBS), dtype=np.int64)
+    py_ = np.zeros_like(px)
+    for k in range(K):
+        for b in range(B):
+            X[k, b], Y[k, b] = device_bls._g2_coords(qs[k][b])
+            Z[k, b, 0] = limbs.MONT_ONE_LIMBS
+            px[k, b], py_[k, b] = device_bls._g1_coords(ps[k][b])
+    f, X3, Y3, Z3 = port(pairing._dbl_run, state["f"], X, Y, Z, px, py_, n=n)
+
+    want = [tower.host_fq12_to_oracle(state["f"][b]) for b in range(B)]
+    T = [torch.from_numpy(t) for t in (X, Y, Z)]
+    P_ = [torch.from_numpy(t) for t in (px, py_)]
+    zero = Fq2(0, 0)
+    for _ in range(n):
+        *T, l0, l3, l5 = pairing._dbl_step(*T, *P_)
+        for b in range(B):
+            want[b] = want[b].square()
+            for k in range(K):
+                want[b] = want[b] * Fq12(
+                    Fq6(oracle_fq2(l0[k, b]), zero, zero),
+                    Fq6(zero, oracle_fq2(l3[k, b]), oracle_fq2(l5[k, b])))
+    for b in range(B):
+        assert tower.host_fq12_to_oracle(f[b]) == want[b]
+        for k in range(K):
+            x, y = qs[k][b].mul(2 ** n).to_affine()
+            z_inv = oracle_fq2(Z3[k, b]).inv()
+            assert oracle_fq2(X3[k, b]) * z_inv == x
+            assert oracle_fq2(Y3[k, b]) * z_inv == y
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n", [1, LONGEST_RUN])
+def test_dbl_run_equals_the_jax_package(state, n):
     s = state
     args = (s["f"], s["X"], s["Y"], s["Z"], s["px"], s["py"])
     got = port(pairing._dbl_run, *args, n=n)

@@ -71,8 +71,12 @@ assert context.spec_device() is None
 from consensus_specs_tpu_torch.crypto.bls import native
 from consensus_specs_tpu_torch.ops import bls as device_bls
 pk, sig = native.SkToPk(3), native.Sign(3, b"no jax")
-assert device_bls.batch_fast_aggregate_verify(
-    [[pk], [pk]], [b"no jax", b"other"], [sig, sig], device="cpu") == [True, False]
+previous = device_bls.set_device("cpu")
+try:
+    assert device_bls.batch_fast_aggregate_verify(
+        [[pk], [pk]], [b"no jax", b"other"], [sig, sig]) == [True, False]
+finally:
+    device_bls.set_device(previous)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))
