@@ -10,7 +10,8 @@ seconds:
    nvcc call for sm_90a a library, all at once and beside the native BLS
    library's g++ build: K1 and K2 (``csrc/sha256.cu``,
    ``csrc/sha256_tree.cu``), K3 (``csrc/bls_fq.cu``), K4 and K5
-   (``csrc/bls_miller.cu``); prints each kernel's ptxas report.
+   (``csrc/bls_miller.cu``, with their step tables
+   ``csrc/bls_miller_schedule.cuh``); prints each kernel's ptxas report.
 2. K1 against its plain torch version on the card, bit for bit, at
    N in {1, 129, 2^20} and at every level of the main path's balances
    reduction, and against hashlib on a sample; times both.
@@ -92,10 +93,14 @@ seconds:
    (the Fq Montgomery product) at 2^20 operand pairs at the edge of its
    envelope, which must also keep its output contract (digits in
    [0, 2^26), values below 3p); K4 (a run of Miller doublings) and K5 (a
-   run of Fq12 squarings) at B = 64 items, K = 2 pairs, n = 32 steps, also
-   against the plain versions on the host.  Canonical values and limbs
-   equal.  Times (CUDA events, ``torch.profiler`` kernel only), the plain
-   versions' times, K3's SASS multiplies a product, and the bounds.
+   run of Fq12 squarings), one block an item, at B in {2, 32, 64} items
+   (8c's padded check, configs 2 and 3), K in {1, 2} pairs and n in
+   {1, 32} steps, and at B = 64 also against the plain versions on the
+   host.  Canonical values and limbs equal.  Times (CUDA events,
+   ``torch.profiler`` kernel only) at each B at K = 2, n = 32, with the
+   share of the SMs the launch holds, the plain versions' times at B = 64,
+   K3's SASS multiplies a product beside the 512 a product needs, and the
+   bounds (from the 512).
 8b. the device BLS backend, ``ops.bls.batch_fast_aggregate_verify`` on the
    card, at the reference bench's BASELINE configs 2 (32 items of one
    512-pubkey aggregate) and 3 (64 items of one 128-pubkey aggregate),
@@ -1453,8 +1458,14 @@ def phase_config_override(fork: str, n_validators: int, seed: int,
 IMAD_LANES_PER_SM_CLOCK = 64
 H100_SMS = 132
 PEAK_IMAD_PER_S = IMAD_LANES_PER_SM_CLOCK * H100_SMS * SM_CLOCK_HZ
-# K3 at this many products, K4 and K5 at the pairing batch of config 3
+# K3 at this many products; K4 and K5 held against their plain versions
+# at the batches of 8c's padded check (2), config 2 (32) and config 3 (64),
+# each pair count and run length, and timed at each batch at config 3's K
+# and n (the kernels line takes config 3's batch)
 K3_PRODUCTS = 1 << 20
+MILLER_BATCHES = (2, 32, 64)
+MILLER_PAIRS = (1, 2)
+MILLER_STEPS = (1, 32)
 MILLER_B, MILLER_K, MILLER_N = 64, 2, 32
 MILLER_N_HOST = 2
 
@@ -1545,9 +1556,11 @@ def kernel_only_ms(fn, fragment: str, calls: int, sees_device: bool):
 
 def phase_bls_kernels(seed: int) -> dict:
     """8a: K3 at 2^20 operand pairs at the edge of its envelope, K4 and K5
-    at B = 64, K = 2, n = 32 from random residues, each against its plain
-    version on the same inputs: canonical values equal (and the limbs,
-    bit for bit), K3's output contract held, times and bounds."""
+    from random residues at ``MILLER_BATCHES`` x ``MILLER_PAIRS`` x
+    ``MILLER_STEPS``, each against its plain version on the same inputs:
+    canonical values equal (and the limbs, bit for bit), K3's output
+    contract held, times and bounds (K4 and K5's at each batch, the
+    kernels line's at config 3's)."""
     from consensus_specs_tpu_torch.ops.bls import limbs, pairing
 
     out = {}
@@ -1576,12 +1589,13 @@ def phase_bls_kernels(seed: int) -> dict:
     names = [k for k in (kernels or {}) if "fq_mul_kernel" in k]
     if kernels is not None and not names:
         raise AssertionError("cuobjdump shows no fq_mul_kernel (K3)")
-    per_product = multiplies(kernels[names[0]][0]) if names else None
-    if per_product is not None:
+    per_product = product_multiplies()
+    if names:
         ops = kernels[names[0]][0]
         print(f"SASS K3 ({sum(ops.values())} instructions, static; the "
-              f"kernel is straight-line): {per_product} multiplies a "
-              f"product; by pipe {by_pipe(ops)}; opcodes: "
+              f"kernel is straight-line): {multiplies(ops)} multiplies a "
+              f"product, where the product needs {per_product} (the bounds "
+              f"count these); by pipe {by_pipe(ops)}; opcodes: "
               + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)),
               flush=True)
     out["k3"] = _kernel_numbers(
@@ -1590,83 +1604,116 @@ def phase_bls_kernels(seed: int) -> dict:
     print(f"K3 == plain at N=2^20 (canonical and limb for limb; digits in "
           f"[0, 2^26), values below 3p): {out['k3']['line']}", flush=True)
 
-    # -- K4 and K5
+    # -- K4 and K5, one block an item: limb for limb against the plain
+    # versions on the card at each batch, pair count and run length, timed
+    # at each batch at config 3's K and n
     rng = np.random.default_rng(seed + 2)
-    B, K, n = MILLER_B, MILLER_K, MILLER_N
+    n = MILLER_N
 
     def res(*shape):
         return torch.from_numpy(_residues(rng, shape))
 
-    host = [res(B, 6, 2), res(K, B, 2), res(K, B, 2), res(K, B, 2),
-            res(K, B), res(K, B)]
-    dev = [t.cuda() for t in host]
-    got4 = pairing._dbl_run(*dev, n)
-    on_card = pairing._dbl_run_plain(*dev, n)
-    got5 = pairing._sq_run(dev[0], n)
-    on_card5 = pairing._sq_run_plain(dev[0], n)
-    on_host5 = pairing._sq_run_plain(host[0], n)
+    runs, err4, err5, checked = {}, 0, 0, 0
+    for B in MILLER_BATCHES:
+        for K in MILLER_PAIRS:
+            dev = [t.cuda() for t in (res(B, 6, 2), res(K, B, 2), res(K, B, 2),
+                                      res(K, B, 2), res(K, B), res(K, B))]
+            for steps in MILLER_STEPS:
+                got = pairing._dbl_run(*dev, steps)
+                want = pairing._dbl_run_plain(*dev, steps)
+                err4 = max(err4, max(_canonical_err(g, w)
+                                     for g, w in zip(got, want)))
+                checked += 1
+            if K == MILLER_K:
+                runs[B] = dev
+        for steps in MILLER_STEPS:
+            err5 = max(err5, _canonical_err(
+                pairing._sq_run(runs[B][0], steps),
+                pairing._sq_run_plain(runs[B][0], steps)))
     # all-torch anchors on the host (K4's at MILLER_N_HOST steps: its plain
     # version costs seconds a step there)
+    B = MILLER_B
+    dev = runs[B]
+    host = [t.cpu() for t in dev]
     short4 = pairing._dbl_run(*dev, MILLER_N_HOST)
     on_host4 = pairing._dbl_run_plain(*host, MILLER_N_HOST)
-    torch.cuda.synchronize()
-    err4 = max(_canonical_err(g, w) for g, w in zip(got4, on_card))
+    on_host5 = pairing._sq_run_plain(host[0], n)
     err4 = max(err4, max(_canonical_err(g, w.cuda())
                          for g, w in zip(short4, on_host4)))
-    err5 = max(_canonical_err(got5, on_card5),
-               _canonical_err(got5, on_host5.cuda()))
+    err5 = max(err5, _canonical_err(pairing._sq_run(dev[0], n), on_host5.cuda()))
+    torch.cuda.synchronize()
     if err4 or err5:
         raise AssertionError(f"K4 / K5 != plain: max canonical |diff| "
                              f"{err4} / {err5}")
-    print(f"K4 and K5 == plain at B={B}, K={K}, n={n} (canonical and limb "
-          f"for limb; the plain versions on the card, whose products are K3 "
-          f"launches, and on the host, all torch, K4's there at "
-          f"n={MILLER_N_HOST})", flush=True)
-    k4 = lambda: pairing._dbl_run(*dev, n)  # noqa: E731
-    k5 = lambda: pairing._sq_run(dev[0], n)  # noqa: E731
-    k4_ms = cuda_ms(k4, iters=3, warmup=1)
-    k5_ms = cuda_ms(k5, iters=3, warmup=1)
-    k4_kernel = kernel_only_ms(k4, "miller_dbl_run_kernel", 3, sees_device)
-    k5_kernel = kernel_only_ms(k5, "fq12_sq_run_kernel", 3, sees_device)
-    plain4_ms = cuda_ms(lambda: pairing._dbl_run_plain(*dev, n), iters=1, warmup=1)
-    plain5_ms = cuda_ms(lambda: pairing._sq_run_plain(dev[0], n), iters=1,
-                        warmup=1)
-    products4 = B * n * (pairing.PRODUCTS_FQ12_SQUARE
-                         + K * pairing.PRODUCTS_DBL_STEP_PER_PAIR)
-    products5 = B * n * pairing.PRODUCTS_FQ12_SQUARE
-    bytes4 = 8 * (2 * sum(t.numel() for t in dev[:4]) + dev[4].numel()
-                  + dev[5].numel())
-    bytes5 = 8 * 2 * dev[0].numel()
-    out["k4"] = _kernel_numbers("K4", bytes4, products4, per_product, err4,
-                                k4_ms, k4_kernel, plain4_ms)
-    out["k5"] = _kernel_numbers("K5", bytes5, products5, per_product, err5,
-                                k5_ms, k5_kernel, plain5_ms)
-    print(f"K4 at B={B}, K={K}, n={n} ({products4} products): "
-          f"{out['k4']['line']}", flush=True)
-    print(f"K5 at B={B}, n={n} ({products5} products): {out['k5']['line']}",
-          flush=True)
+    print(f"K4 == plain at B in {MILLER_BATCHES}, K in {MILLER_PAIRS}, n in "
+          f"{MILLER_STEPS} ({checked} runs), K5 == plain at each B and n "
+          f"(canonical and limb for limb; the plain versions on the card, "
+          f"whose products are K3 launches, and on the host, all torch, at "
+          f"B={B}, K4's there at n={MILLER_N_HOST})", flush=True)
+    for B in MILLER_BATCHES:
+        dev = runs[B]
+        k4 = lambda: pairing._dbl_run(*dev, n)  # noqa: E731
+        k5 = lambda: pairing._sq_run(dev[0], n)  # noqa: E731
+        k4_ms, k5_ms = cuda_ms(k4), cuda_ms(k5)
+        k4_kernel = kernel_only_ms(k4, "miller_dbl_run_kernel", 10, sees_device)
+        k5_kernel = kernel_only_ms(k5, "fq12_sq_run_kernel", 10, sees_device)
+        if B == MILLER_B:
+            plain4_ms = cuda_ms(lambda: pairing._dbl_run_plain(*dev, n),
+                                iters=1, warmup=1)
+            plain5_ms = cuda_ms(lambda: pairing._sq_run_plain(dev[0], n),
+                                iters=1, warmup=1)
+        else:
+            plain4_ms = plain5_ms = None
+        products4 = B * n * (pairing.PRODUCTS_FQ12_SQUARE
+                             + MILLER_K * pairing.PRODUCTS_DBL_STEP_PER_PAIR)
+        products5 = B * n * pairing.PRODUCTS_FQ12_SQUARE
+        bytes4 = 8 * (2 * sum(t.numel() for t in dev[:4]) + dev[4].numel()
+                      + dev[5].numel())
+        bytes5 = 8 * 2 * dev[0].numel()
+        k4_numbers = _kernel_numbers("K4", bytes4, products4, per_product, err4,
+                                     k4_ms, k4_kernel, plain4_ms)
+        k5_numbers = _kernel_numbers("K5", bytes5, products5, per_product, err5,
+                                     k5_ms, k5_kernel, plain5_ms)
+        sms = f"{min(B, H100_SMS)} of {H100_SMS} SMs hold a block"
+        print(f"K4 at B={B}, K={MILLER_K}, n={n} ({products4} products; "
+              f"{sms}): {k4_numbers['line']}", flush=True)
+        print(f"K5 at B={B}, n={n} ({products5} products; {sms}): "
+              f"{k5_numbers['line']}", flush=True)
+        if B == MILLER_B:
+            out["k4"], out["k5"] = k4_numbers, k5_numbers
     return out
+
+
+def product_multiplies() -> int:
+    """The integer multiplies one Montgomery product of 16-limb operands
+    needs: the schoolbook a*b (16 x 16), the 16 REDC quotients, and each
+    quotient times p's nonzero limbs (16 x 15).  Each is one 26 x 26-bit
+    multiply into a 64-bit sum; K3's signed-word body issues about twice
+    as many (its SASS, printed in 8a), most of them sign corrections."""
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    n = limbs.N_LIMBS
+    return n * n + n + n * int(np.count_nonzero(limbs.P_LIMBS))
 
 
 def _kernel_numbers(label, n_bytes, products, per_product, err, ms,
                     kernel_ms, plain_ms) -> dict:
     """A kernel's numbers for the kernels line, and their printed form:
     the bound is the larger of its bytes at the HBM rate and its
-    multiplies (products x the SASS multiplies of one K3 product) at the
-    integer multiply-add rate."""
+    multiplies (products x the multiplies a product needs, each one issue)
+    at the integer multiply-add rate."""
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = (None if per_product is None
-              else products * per_product / PEAK_IMAD_PER_S * 1e3)
-    if ops_ms is not None and ops_ms >= bytes_ms:
+    ops_ms = products * per_product / PEAK_IMAD_PER_S * 1e3
+    if ops_ms >= bytes_ms:
         bound, by = ops_ms, "operations"
     else:
         bound, by = bytes_ms, "bytes"
     kernel_text = ("not measured (the profiler recorded no time for it)"
                    if kernel_ms is None else f"{kernel_ms:.5f} ms")
-    ops_text = "not measured (no SASS)" if ops_ms is None else f"{ops_ms:.5f}"
+    plain_text = "not timed" if plain_ms is None else f"{plain_ms:.3f} ms"
     line = (f"{label} {ms:.5f} ms (CUDA events), kernel only {kernel_text}; "
-            f"plain {plain_ms:.3f} ms; bound {bound:.5f} ms ({by}; bytes "
-            f"{bytes_ms:.5f}, multiplies {ops_text})")
+            f"plain {plain_text}; bound {bound:.5f} ms ({by}; bytes "
+            f"{bytes_ms:.5f}, multiplies {ops_ms:.5f})")
     return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "line": line}
@@ -1697,10 +1744,13 @@ def _reset_bls_counts() -> None:
 
 
 def device_batch(pubkeys_lists, messages, signatures) -> dict:
-    """One ``batch_fast_aggregate_verify`` pass on the card, split into its
-    host marshalling and its device pairing check, with the launches it
-    made (counts zeroed just before it)."""
+    """One ``batch_fast_aggregate_verify`` pass on the card, with the
+    launches it made (counts zeroed just before it) and K3's launch shapes,
+    beside its host marshalling timed alone and, where the call's items
+    make a power-of-two batch (so that the call padded none), its device
+    pairing check timed alone on them."""
     from consensus_specs_tpu_torch.ops import bls as device_bls
+    from consensus_specs_tpu_torch.ops.bls import limbs
 
     _reset_bls_counts()
     torch.cuda.synchronize()
@@ -1712,11 +1762,56 @@ def device_batch(pubkeys_lists, messages, signatures) -> dict:
         pubkeys_lists, messages, signatures)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return {"verdicts": verdicts, "marshal_s": t1 - t0,
-            # the second call marshals again (cached decompressions): its
-            # pairing share is the call less the marshalling just timed
-            "pairing_s": (t2 - t1) - (t1 - t0), "call_s": t2 - t1,
-            "launches": _bls_counts(), "todo": len(todo)}
+    run = {"verdicts": verdicts, "marshal_s": t1 - t0, "call_s": t2 - t1,
+           "launches": _bls_counts(),
+           "shapes": dict(sorted(limbs.launch_shapes.items())),
+           "todo": len(todo), "pairing_s": None}
+    pairs = [item for _, item in todo]
+    if len(pairs) >= 2 and len(pairs) & (len(pairs) - 1) == 0:
+        t0 = time.perf_counter()
+        device_bls._check_pairs_batch(pairs, device_bls.pairing_device())
+        torch.cuda.synchronize()
+        run["pairing_s"] = time.perf_counter() - t0
+    return run
+
+
+# the kernel-name fragments of the device BLS kernels, for a call's device
+# time by kernel (the rest are torch's own kernels)
+BLS_KERNEL_NAMES = (("K3", "fq_mul_kernel"), ("K4", "miller_dbl_run_kernel"),
+                    ("K5", "fq12_sq_run_kernel"))
+
+
+def device_breakdown(args):
+    """The device time of one ``batch_fast_aggregate_verify`` call by
+    ``torch.profiler``: ms in K3, K4, K5 and torch's own kernels, and their
+    sum's share of that same call's host-clock seconds, the profiler on
+    (the device's busy share); None where the profiler sees no device
+    time."""
+    from consensus_specs_tpu_torch.ops import bls as device_bls
+
+    walls = []
+
+    def call():
+        t0 = time.perf_counter()
+        device_bls.batch_fast_aggregate_verify(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    prof = profiled_kernel_ms(call, calls=1)
+    if prof is None:
+        print("  device breakdown: not measured (the profiler recorded no "
+              "device time)", flush=True)
+        return None
+    kernels, total = prof
+    split = {label: sum(ms for name, (ms, _) in kernels.items()
+                        if fragment in name)
+             for label, fragment in BLS_KERNEL_NAMES}
+    split["torch"] = total - sum(split.values())
+    print(f"  device time of one call (torch.profiler): {total:.3f} ms, "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; busy {total / 1e3 / walls[-1]:.1%} of this call's "
+          f"{walls[-1]:.3f} s (profiler on)", flush=True)
+    return {"total_ms": total, "call_s": walls[-1], **split}
 
 
 def phase_bls_batches(seed: int) -> dict:
@@ -1757,7 +1852,7 @@ def phase_bls_batches(seed: int) -> dict:
             if not torch.equal(got, limbs.mul_plain(a, b)):
                 raise AssertionError(f"{label}: K3 != plain at "
                                      f"{got.numel() // limbs.N_LIMBS} products")
-        shapes = dict(sorted(limbs.launch_shapes.items()))
+        shapes = run["shapes"]
         if not (all(first["verdicts"]) and all(run["verdicts"])):
             raise AssertionError(f"{label}: a valid item failed on the card")
         if min(run["launches"].values()) <= 0:
@@ -1774,16 +1869,20 @@ def phase_bls_batches(seed: int) -> dict:
         run.update(batch=batch, keys=n_keys, native_s=native_s,
                    native_seq_s=native_seq_s, first_s=first["call_s"])
         out[label] = run
+        pairing_text = ("not timed (padded batch)" if run["pairing_s"] is None
+                        else f"{run['pairing_s']:.3f} s")
         print(f"{label} ({batch} items of {n_keys} pubkeys, every verdict "
               f"True): device {batch / run['call_s']:.1f} verifies/s "
-              f"({run['call_s']:.3f} s: marshalling {run['marshal_s']:.3f} s "
-              f"host, pairing {run['pairing_s']:.3f} s device; first call "
+              f"({run['call_s']:.3f} s; timed alone: marshalling "
+              f"{run['marshal_s']:.3f} s host, pairing check "
+              f"{pairing_text} device; first call "
               f"{first['call_s']:.3f} s with the decompressions); native "
               f"BatchFastAggregateVerify {batch / native_s:.1f} verifies/s "
               f"({native_s:.3f} s), native sequential "
               f"{batch / native_seq_s:.1f}; launches a batch {run['launches']}; "
               f"K3's launch shapes (products: launches) {shapes}, K3 == plain "
               f"limb for limb at each", flush=True)
+        run["device"] = device_breakdown(args)
 
     # the mixed batch: each kind of item the verifier must tell apart
     rng = np.random.default_rng(seed)

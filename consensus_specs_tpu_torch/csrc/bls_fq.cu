@@ -13,11 +13,13 @@
 // integer multiplies (497 IMAD.WIDE.U32, 528 IMAD: nvcc builds each of
 // the 256 signed schoolbook products from an unsigned wide multiply and
 // two sign corrections; REDC's 240 are unsigned; 16 make the REDC
-// quotients).  Hopper's integer multiply-add rate is 64 lanes a clock an
+// quotients), where the product needs 512 (the 256 schoolbook, the 240
+// and the 16).  Hopper's integer multiply-add rate is 64 lanes a clock an
 // SM (half the float32 FMA rate), 16.7e12 a second at 1.98 GHz on 132
-// SMs, so 2^20 products need 0.064 ms of multiplies and 0.120 ms of bytes
-// at 3.35 TB/s: the kernel is bound by bytes, because the int64 limb
-// layout carries 16 x 8 bytes where 48 would do.
+// SMs, so 2^20 products need 0.032 ms of multiplies (0.064 ms as
+// compiled) and 0.120 ms of bytes at 3.35 TB/s: the kernel is bound by
+// bytes, because the int64 limb layout carries 16 x 8 bytes where 48
+// would do.
 //
 // Design for that bound: each thread reads its own two rows as eight
 // 16-byte loads each and writes its row the same way; the arithmetic is

@@ -1,14 +1,15 @@
-// The BLS12-381 base-field (Fq) arithmetic of K3, K4 and K5, for one thread.
+// The BLS12-381 base-field (Fq) arithmetic of K3, K4 and K5, for one thread:
+// the Montgomery product and the renorm.
 //
 // The representation is ops/bls/limbs.py's: an element is 16 signed 64-bit
 // limbs of 26 bits, value = sum(l[i] << 26*i), in Montgomery form at
 // R = 2^416.  Additions, subtractions and small multiples are lazy (one
-// limb-wise op, nothing propagates); only fq_mul reduces.  Every function
+// limb-wise op, nothing propagates); only the product reduces.  Every function
 // here computes the same integer values as its torch counterpart in
 // limbs.py, and every output there depends only on those values, so the
 // limbs that leave a kernel are the plain version's, bit for bit.
 //
-// fq_mul's operand envelope is limbs.mul's: limbs |a_i| <= 2^29, products
+// The product's operand envelope is limbs.mul's: limbs |a_i| <= 2^29, products
 // |a*b| < R*p.  So each limb fits a signed 32-bit register, and each
 // partial product a_i * b_j is a 32 x 32 -> 64-bit multiply-add into a
 // 64-bit column sum; the sums stay below 2^63 (the audit in limbs.py).
@@ -50,20 +51,10 @@ __device__ __forceinline__ long long p_limb(int j) {
   }
 }
 
-struct Fq {
-  long long l[kLimbs];
-};
-
-// a*b*R^-1 mod p, as limbs.mul_plain: canonical 26-bit digits, value in
-// (0, 3p).  out may alias a or b.
-__device__ __forceinline__ void fq_mul_body(long long* out, const long long* a,
-                                            const long long* b) {
-  int32_t ai[kLimbs], bi[kLimbs];
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    ai[i] = (int32_t)a[i];
-    bi[i] = (int32_t)b[i];
-  }
+// a*b*R^-1 mod p, as limbs.mul_plain, of operands given as the signed
+// 32-bit words of their limbs: canonical 26-bit digits, value in (0, 3p)
+__device__ __forceinline__ void fq_mul_words(long long* out, const int32_t* ai,
+                                             const int32_t* bi) {
   long long t[2 * kLimbs];
 #pragma unroll
   for (int k = 0; k < 2 * kLimbs; ++k) t[k] = 0;
@@ -95,58 +86,29 @@ __device__ __forceinline__ void fq_mul_body(long long* out, const long long* a,
   }
 }
 
-// fq_mul_body as a call: the Miller kernels make hundreds of products a
-// step, and a call keeps their code to one copy of the product.
-__device__ __noinline__ Fq fq_mul(const Fq& a, const Fq& b) {
-  Fq r;
-  fq_mul_body(r.l, a.l, b.l);
-  return r;
-}
-
-// lazy elementwise ops --------------------------------------------------------
-
-__device__ __forceinline__ Fq fq_add(const Fq& a, const Fq& b) {
-  Fq r;
+// fq_mul_words of int64 limbs.  out may alias a or b.
+__device__ __forceinline__ void fq_mul_body(long long* out, const long long* a,
+                                            const long long* b) {
+  int32_t ai[kLimbs], bi[kLimbs];
 #pragma unroll
-  for (int i = 0; i < kLimbs; ++i) r.l[i] = a.l[i] + b.l[i];
-  return r;
+  for (int i = 0; i < kLimbs; ++i) {
+    ai[i] = (int32_t)a[i];
+    bi[i] = (int32_t)b[i];
+  }
+  fq_mul_words(out, ai, bi);
 }
 
-__device__ __forceinline__ Fq fq_sub(const Fq& a, const Fq& b) {
-  Fq r;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) r.l[i] = a.l[i] - b.l[i];
-  return r;
-}
-
-__device__ __forceinline__ Fq fq_neg(const Fq& a) {
-  Fq r;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) r.l[i] = -a.l[i];
-  return r;
-}
-
-// k * a, limb-wise (the torch code's `8 * B`)
-__device__ __forceinline__ Fq fq_smul(long long k, const Fq& a) {
-  Fq r;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) r.l[i] = k * a.l[i];
-  return r;
-}
-
-// limbs.renorm: signed carries, value unchanged; limbs 0..14 canonical,
-// the top limb absorbs the rest
-__device__ __forceinline__ Fq fq_renorm(const Fq& a) {
-  Fq r;
+// limbs.renorm, in place: signed carries, value unchanged; limbs 0..14
+// canonical, the top limb absorbs the rest
+__device__ __forceinline__ void fq_renorm(long long* a) {
   long long c = 0;
 #pragma unroll
   for (int i = 0; i < kLimbs - 1; ++i) {
-    const long long v = a.l[i] + c;
-    r.l[i] = v & kMask;
+    const long long v = a[i] + c;
+    a[i] = v & kMask;
     c = v >> kLimbBits;
   }
-  r.l[kLimbs - 1] = a.l[kLimbs - 1] + c;
-  return r;
+  a[kLimbs - 1] += c;
 }
 
 }  // namespace bls

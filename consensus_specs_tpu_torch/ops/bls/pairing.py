@@ -20,11 +20,12 @@ Design (vs the affine/untwist oracle in crypto/bls/pairing.py):
     the loop is runs of pure doublings with 5 add-steps between them.
     Each run of doublings is ONE launch of K4 (``csrc/bls_miller.cu``)
     on the card, and each squaring chain of the final exponentiation ONE
-    launch of K5; the rest is torch on ``limbs.mul`` (K3).  ``_dbl_run``
-    and ``_sq_run`` are the wrappers: a CUDA tensor launches the kernel or
-    raises ``KernelError``, a CPU tensor runs ``_dbl_run_plain`` /
-    ``_sq_run_plain``, the plain torch versions.  x < 0 via final
-    conjugation, as in the oracle (crypto/bls/pairing.py).
+    launch of K5, one thread block an item running the step's table of
+    phases (``schedule.py``); the rest is torch on ``limbs.mul`` (K3).
+    ``_dbl_run`` and ``_sq_run`` are the wrappers: a CUDA tensor launches
+    the kernel or raises ``KernelError``, a CPU tensor runs
+    ``_dbl_run_plain`` / ``_sq_run_plain``, the plain torch versions.
+    x < 0 via final conjugation, as in the oracle (crypto/bls/pairing.py).
   * Final exponentiation: easy part, then the Hayashida-Hayasaka-Teruya
     decomposition  3*hard = (x-1)^2 (x+p) (x^2+p^2-1) + 3.  Computing
     f^(3*hard) instead of f^hard is sound for the ==1 check because
@@ -127,15 +128,21 @@ def _add_step(X, Y, Z, qx, qy, px, py):
 # ---------------------------------------------------------------------------
 
 
+def _dbl_run_step(f, X, Y, Z, px, py):
+    """One Miller doubling step for K pairs: T <- 2T, f <- f^2 * prod_k
+    line_k, the lines applied in pair order.  K4's schedule is recorded
+    from this function (``schedule.py``)."""
+    X, Y, Z, l0, l3, l5 = _dbl_step(X, Y, Z, px, py)
+    f = tower.fq12_square(f)
+    for k in range(px.shape[0]):
+        f = tower.fq12_mul_line(f, l0[k], l3[k], l5[k])
+    return f, X, Y, Z
+
+
 def _dbl_run_plain(f, X, Y, Z, px, py, n: int):
-    """K4's plain version: n Miller doubling steps (f <- f^2 * prod_k
-    line_k; T <- 2T), all K pairs a step, lines applied in pair order."""
-    K = px.shape[0]
+    """K4's plain version: n Miller doubling steps."""
     for _ in range(n):
-        X, Y, Z, l0, l3, l5 = _dbl_step(X, Y, Z, px, py)
-        f = tower.fq12_square(f)
-        for k in range(K):
-            f = tower.fq12_mul_line(f, l0[k], l3[k], l5[k])
+        f, X, Y, Z = _dbl_run_step(f, X, Y, Z, px, py)
     return f, X, Y, Z
 
 
@@ -198,7 +205,7 @@ _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "csrc")
 CU_SOURCES = (os.path.join(_CSRC_DIR, "bls_miller.cu"),)
 HEADERS = tuple(os.path.join(_CSRC_DIR, name)
-                for name in ("bls_tower.cuh", "bls_fq.cuh"))
+                for name in ("bls_miller_schedule.cuh", "bls_fq.cuh"))
 _lib = None
 
 

@@ -16,8 +16,18 @@ the shapes the JAX package's own tests compile, and against the oracle.
   exponentiation against the JAX package's jitted pipeline (about 6 s of
   XLA cache loads a process for the run alone, 20 s for the whole
   pipeline, on the CPU);
-* ``cuda``: K4 and K5 against their plain versions on the card.
+* the step tables K4 and K5 run (``ops/bls/schedule.py``): the header the
+  kernels compile is what the formulas give, no phase writes a slot it
+  reads or writes one twice, and the tables, run in torch, give the plain
+  doubling and squaring runs' limbs bit for bit, at one to four pairs;
+  ``bls_phase_clock.py``'s patch of the step loop still applies;
+* ``cuda``: K4 and K5 against their plain versions on the card, at batches
+  that do and do not fill whole warps, one to four pairs.
 """
+import dataclasses
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +40,7 @@ from consensus_specs_tpu_torch.crypto.bls.curve import (
     g1_generator, g2_generator, pubkey_to_point, signature_to_point)
 from consensus_specs_tpu_torch.crypto.bls.fields import Fq2, Fq6, Fq12, P, R, X_PARAM
 from consensus_specs_tpu_torch.ops import bls as device_bls
-from consensus_specs_tpu_torch.ops.bls import limbs, pairing, tower
+from consensus_specs_tpu_torch.ops.bls import limbs, pairing, schedule, tower
 
 K, B = 2, 2
 SEED = 9
@@ -255,6 +265,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(state):
         pairing._sq_run(f.to(torch.int32), 1)
 
 
+# -- the step tables of K4 and K5 -------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tables():
+    return {t: schedule.build(t) for t in schedule.TABLES}
+
+
+def test_schedule_header_is_the_formulas(tables):
+    """csrc/bls_miller_schedule.cuh is what ``python -m
+    consensus_specs_tpu_torch.ops.bls.schedule`` writes from the torch
+    formulas now."""
+    with open(schedule._HEADER) as f:
+        assert f.read() == schedule.render([tables[t] for t in schedule.TABLES])
+
+
+@pytest.mark.parametrize("table", schedule.TABLES)
+def test_schedule_phases_have_no_hazards(tables, table):
+    s = tables[table]
+    schedule.check(s)
+    want = pairing.PRODUCTS_FQ12_SQUARE + table * pairing.PRODUCTS_DBL_STEP_PER_PAIR
+    assert s.products == want
+    assert s.threads <= schedule.MAX_THREADS
+
+
+def test_check_finds_a_phase_that_writes_what_it_reads(tables):
+    s = tables[schedule.SQ]
+    first, n_mul, _ = s.phases[0]
+    ops = s.ops.copy()
+    read = int(s.terms[ops[first, 1]]) >> 16
+    ops[first + 1, 0] = read
+    with pytest.raises(AssertionError):
+        schedule.check(dataclasses.replace(s, ops=ops))
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("n", [0, 1, 3])
+def test_dbl_schedule_gives_the_plain_limbs(state, tables, K, n):
+    s = state
+    args = [torch.from_numpy(s["f"])] + [
+        torch.from_numpy(s[k][:K]) for k in ("X", "Y", "Z", "px", "py")]
+    got = schedule.unpack_dbl(
+        schedule.run_plain(tables[K], schedule.pack_dbl(*args), n), K)
+    for g, w in zip(got, pairing._dbl_run_plain(*args, n)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K", [3, pairing.MAX_PAIRS])
+def test_dbl_schedule_gives_the_plain_limbs_at_more_pairs(tables, K):
+    """The tables for three and four pairs, one step."""
+    rng = np.random.default_rng(SEED + K)
+    args = [torch.from_numpy(residues(rng, *shape)) for shape in (
+        (B, 6, 2), (K, B, 2), (K, B, 2), (K, B, 2), (K, B), (K, B))]
+    got = schedule.unpack_dbl(
+        schedule.run_plain(tables[K], schedule.pack_dbl(*args), 1), K)
+    for g, w in zip(got, pairing._dbl_run_plain(*args, 1)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3])
+def test_sq_schedule_gives_the_plain_limbs(state, tables, n):
+    f = torch.from_numpy(state["f"])
+    got = schedule.run_plain(tables[schedule.SQ], f.reshape(B, 12, -1), n)
+    assert torch.equal(got.reshape(f.shape), pairing._sq_run_plain(f, n))
+
+
+def test_phase_clock_still_instruments_the_step_loop():
+    """``bls_phase_clock.py`` (the cycles of each phase, on the card)
+    patches ``bls_miller.cu``'s step loop by its text: the patch still
+    applies, and a loop it does not know is refused."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "bls_phase_clock.py"
+    spec = importlib.util.spec_from_file_location("bls_phase_clock", path)
+    clock = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(clock)
+    with open(pairing.CU_SOURCES[0]) as f:
+        src = f.read()
+    out = clock.instrumented_source(src)
+    assert out.count("clock64()") == 2 and "phase_clock_read" in out
+    with pytest.raises(RuntimeError, match="run_steps"):
+        clock.instrumented_source(src.replace(clock.PHASE_END, "}"))
+
+
 # -- K4 and K5 on the card --------------------------------------------------
 
 
@@ -267,10 +359,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 33, 64])
+@pytest.mark.parametrize("pairs", [1, 2])
 @pytest.mark.parametrize("n", [0, 1, 5])
-def test_k4_k5_match_plain(cuda_device, state, n):
-    s = state
-    host = [torch.from_numpy(s[k]) for k in ("f", "X", "Y", "Z", "px", "py")]
+def test_k4_k5_match_plain(cuda_device, batch, pairs, n):
+    check_k4_k5(cuda_device, batch, pairs, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [3, pairing.MAX_PAIRS])
+def test_k4_k5_match_plain_at_more_pairs(cuda_device, pairs):
+    """Three and four pairs, one step: K = 4's block alone takes more than
+    48 KB of shared memory, and so the launch's opt-in."""
+    check_k4_k5(cuda_device, 33, pairs, 1)
+
+
+def check_k4_k5(cuda_device, batch, pairs, n):
+    rng = np.random.default_rng(SEED + batch)
+    host = [torch.from_numpy(residues(rng, *shape)) for shape in (
+        (batch, 6, 2), (pairs, batch, 2), (pairs, batch, 2),
+        (pairs, batch, 2), (pairs, batch), (pairs, batch))]
     dev = [t.to(cuda_device) for t in host]
     before = dict(pairing.counts)
     got4 = pairing._dbl_run(*dev, n)

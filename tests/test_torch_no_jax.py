@@ -129,7 +129,8 @@ def _imports(path: pathlib.Path):
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
-    sources = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    sources = sorted((ROOT / PORT).rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bls_phase_clock.py"]
     assert len(sources) > 20
     offenders = [(str(p.relative_to(ROOT)), name)
                  for p in sources for name in _imports(p) if _is_forbidden(name)]
