@@ -39,10 +39,21 @@ seconds:
    degraded), the root must equal phase 3's, the fused epoch update must
    run once, K1 must not launch, and K2 must launch for the epoch and for
    the resident per-slot root of the bulk-written balances.
-4. K1 as the SSZ layer hasher: a freshly decoded copy of the post-state
-   hashed under the ``"torch"`` backend equals its hashlib root; then the
-   inputs of those K1 launches are held against the plain version and
-   timed, K1's path shapes for its kernels entry.
+4. K1 as the SSZ layer hasher, on a freshly decoded copy of the
+   post-state (each route hashes its own unhashed copy of that tree).  The
+   ``"torch"`` backend's wave route (K1's path since it came: the whole
+   wave schedule as one upload, K1's grid launches and one-block tails,
+   one download) and its per-level route (the wave hasher unregistered:
+   one dense K1 launch a wave of at least 256 messages, hashlib below)
+   must both give hashlib's root and the main path's.  Prints the wave
+   schedule's waves and K1 launches (grid waves, tails and their waves);
+   holds every wave's digests against the plain version run on the card
+   over the same pool and indices; times the schedule on the card (CUDA
+   events over the whole schedule, ``torch.profiler``'s span from its
+   first kernel's start to its last one's end, and the schedule with no
+   tail, every wave a grid launch) beside its bound and the per-level
+   route's K1 launches summed (each launch's input timed again, as
+   before); and the wall time of each route's ``hash_tree_root``, in turns.
 5. the altair main path: one mainnet-preset altair epoch at 400,000
    validators with BLS on — real pubkeys and sync committees, 32 signed
    blocks, each with the two preceding slots' aggregates and a sync
@@ -157,10 +168,11 @@ N_VALIDATORS = 400_000
 # printed beside its time and never in the kernels line.  The schedule
 # model: a warp alone on its SM sub-partition issues as ptxas scheduled
 # it, so each dependent tree level costs the scheduled cycles of one
-# message hash (the stall counts in the SASS of K1's kernel, which is one
-# hash and its loads and stores).  The chain floor: each of the 128 rounds
-# of a level waits for three dependent instructions (from e to the next e:
-# a rotate, the xor, an add) of about four cycles each.
+# message hash (the stall counts in the SASS of K1's tail kernel, which is
+# one hash through K2's AluPipe, its loads and stores, and its wave loop).
+# The chain floor: each of the 128 rounds of a level waits for three
+# dependent instructions (from e to the next e: a rotate, the xor, an add)
+# of about four cycles each.
 CHAIN_OPS_PER_ROUND = 3
 DEPENDENT_LATENCY_CYCLES = 4
 ROUNDS_PER_MESSAGE = 128
@@ -500,8 +512,8 @@ def phase_k1(n_validators: int, seed: int) -> dict:
     k1_big = cuda_ms(lambda: sha256.sha256_block64(big), iters=50)
     plain_big = cuda_ms(lambda: _plain_on(big), iters=3, warmup=1)
     bound_big, by_big = bound_ms(1 << 20, sha256)
-    print(f"N=2^20: K1 {k1_big:.4f} ms, plain {plain_big:.3f} ms, bound "
-          f"{bound_big:.4f} ms ({by_big})", flush=True)
+    print(f"N=2^20: K1 {k1_big:.5f} ms, plain {plain_big:.3f} ms, bound "
+          f"{bound_big:.5f} ms ({by_big})", flush=True)
 
     # the main path's shapes: every level of the balances reduction
     leaves = _leaf_words(_balance_values(n_validators, seed))
@@ -519,8 +531,8 @@ def phase_k1(n_validators: int, seed: int) -> dict:
           f"{k1_path:.4f} ms, plain {plain_path:.3f} ms, bound "
           f"{bound_path:.5f} ms ({by_path})", flush=True)
     # these shapes are off K1's path since K2 took the reduction; its
-    # kernels entry is timed on the SSZ hasher's launches (phase 4)
-    return {"max_abs_err": max_err}
+    # kernels entry is timed on the SSZ hasher's wave route (phase 4)
+    return {"max_abs_err": max_err, "dense_2e20_ms": k1_big}
 
 
 # -- phase 2b ---------------------------------------------------------------
@@ -592,21 +604,31 @@ def by_pipe(opcodes) -> dict:
     return pipes
 
 
+# K1's kernels and K2's, by label and the fragments of their (mangled)
+# names: K1's grid kernel instantiated for dense rows and for gathered
+# pairs, its one-block tail, K2
+SASS_KERNELS = (("K1 dense", ("sha256_block64_kernel", "DenseRows")),
+                ("K1 wave", ("sha256_block64_kernel", "GatheredPairs")),
+                ("K1 tail", ("sha256_waves_tail_kernel",)),
+                ("K2", ("tree_reduce_kernel",)))
+
+
 def print_sass(lib_path: str):
-    """Print the SASS opcode counts of K1 and K2 by pipe, per round of
-    their one unrolled message hash, and their scheduled cycles; return
-    K1's scheduled cycles, one message hash's (None where cuobjdump is
+    """Print the SASS opcode counts of K1's kernels and K2 by pipe, per
+    round of their one unrolled message hash, and their scheduled cycles;
+    return the scheduled cycles of K1's tail kernel, one message hash
+    through the core's AluPipe as K2 hashes (None where cuobjdump is
     missing)."""
     kernels = sass_kernels(lib_path)
     if kernels is None:
         print("SASS opcode counts: not measured (no cuobjdump)", flush=True)
         return None
-    k1_cycles = None
-    for label, fragment in (("K1", "sha256_block64_kernel"),
-                            ("K2", "tree_reduce_kernel")):
-        names = [k for k in kernels if fragment in k]
-        if not names:
-            raise AssertionError(f"cuobjdump shows no {fragment} ({label})")
+    tail_cycles = None
+    for label, fragments in SASS_KERNELS:
+        names = [k for k in kernels if all(f in k for f in fragments)]
+        if len(names) != 1:
+            raise AssertionError(f"cuobjdump shows {len(names)} kernels for "
+                                 f"{label} ({fragments})")
         ops, cycles = kernels[names[0]]
         pipes = by_pipe(ops)
         per_round = ", ".join(f"{k} {v / ROUNDS_PER_MESSAGE:.2f}"
@@ -615,18 +637,22 @@ def print_sass(lib_path: str):
         print(f"SASS {label} ({sum(ops.values())} instructions, {cycles} "
               f"scheduled cycles, static): by pipe {pipes}; a round of its "
               f"one message hash: {per_round}; opcodes: {top}", flush=True)
-        if label == "K1":
-            k1_cycles = cycles
-            # a model, not a bound: the ALU pipe issues 16 lanes a clock on
-            # each of an SM's four sub-partitions, at the 1.98 GHz behind
+        if label == "K1 tail":
+            tail_cycles = cycles
+        if label == "K1 dense":
+            # models, not bounds: each pipe issues 16 lanes a clock on each
+            # of an SM's four sub-partitions, at the 1.98 GHz behind
             # PEAK_INT32_OPS_PER_S
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            alu_ms = pipes["alu"] * (1 << 20) / (64 * sms * SM_CLOCK_HZ) * 1e3
-            print(f"K1 ALU-pipe issue floor at N=2^20 (a model, not a bound: "
-                  f"{pipes['alu']} ALU-pipe instructions a message, 64 lanes "
-                  f"a clock on each of {sms} SMs at {SM_CLOCK_HZ / 1e9} GHz): "
-                  f"{alu_ms:.4f} ms", flush=True)
-    return k1_cycles
+            lanes = 64 * sms * SM_CLOCK_HZ
+            alu_ms = pipes["alu"] * (1 << 20) / lanes * 1e3
+            fma_ms = pipes["fma"] * (1 << 20) / lanes * 1e3
+            print(f"K1 issue floors at N=2^20 (models, not bounds: "
+                  f"{pipes['alu']} ALU-pipe and {pipes['fma']} FMA-pipe "
+                  f"instructions a message, 64 lanes a clock on each of {sms} "
+                  f"SMs at {SM_CLOCK_HZ / 1e9} GHz): ALU pipe {alu_ms:.4f} ms, "
+                  f"FMA pipe {fma_ms:.4f} ms", flush=True)
+    return tail_cycles
 
 
 def _word_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -712,7 +738,7 @@ def phase_k2(n_validators: int, seed: int) -> dict:
     issue_text = ("not measured (no SASS)" if issue_cycles is None else
                   f"{levels * issue_cycles / (clock_mhz * 1e6) * 1e3:.5f} ms "
                   f"({levels} levels x {issue_cycles} scheduled cycles of K1's "
-                  f"one hash)")
+                  f"tail, one hash through the same AluPipe)")
     print(f"chain floor (model, not a bound): {chain_ms:.5f} ms ({levels} levels "
           f"x {ROUNDS_PER_MESSAGE} rounds x {CHAIN_OPS_PER_ROUND} dependent "
           f"instructions x {DEPENDENT_LATENCY_CYCLES} cycles at {clock_mhz:.0f} "
@@ -944,66 +970,238 @@ def phase_engine(main_path: dict) -> dict:
 # -- phase 4 ----------------------------------------------------------------
 
 
-def phase_ssz_hasher(spec, post) -> dict:
+def unhashed_copy(root):
+    """The tree under ``root`` with every branch node that has no root yet
+    rebuilt as a new one, the tree's sharing kept: the same hashing work
+    as ``root`` itself, without another decode.  Leaves and nodes with a
+    root (the shared zero subtrees) stay as they are."""
+    from consensus_specs_tpu_torch.ssz.node import BranchNode
+
+    memo = {}
+
+    def copy(n):
+        if n._root is not None or not isinstance(n, BranchNode):
+            return n
+        got = memo.get(id(n))
+        if got is None:
+            got = memo[id(n)] = BranchNode(copy(n.left), copy(n.right))
+        return got
+
+    enabled = gc.isenabled()
+    gc.disable()  # millions of new nodes: set-up, not the measured root
+    try:
+        return copy(root)
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def profiled_schedule_ms(fn, fragment: str, launches: int, calls: int = 10):
+    """Device time of a call of ``fn()`` from the start of the first of its
+    ``launches`` kernels whose name holds ``fragment`` to the end of the
+    last, by ``torch.profiler``: the median over ``calls`` calls, each
+    waited for, so that a call's kernels are the next ``launches`` in start
+    order.  None unless the profiler recorded every one of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and fragment in e.name)
+    if len(kernels) != calls * launches:
+        print(f"  profiler: {len(kernels)} {fragment} events for {calls} calls "
+              f"of {launches}", flush=True)
+        return None
+    spans = sorted(max(end for _, end in kernels[i:i + launches])
+                   - kernels[i][0] for i in range(0, len(kernels), launches))
+    return spans[len(spans) // 2] / 1e3
+
+
+def wave_schedule_on_card(known: np.ndarray, waves, device: str = "cuda") -> dict:
+    """One recorded wave schedule on the card again: its pool and index
+    uploaded once, the outputs of K1 (``launch_waves``) against the plain
+    version's over the same pool and indices, and its times."""
+    from consensus_specs_tpu_torch.ops import sha256
+
+    k = known.shape[0]
+    lefts, rights, starts = sha256.wave_indices(k, waves)
+    total = int(starts[-1])
+    sizes = np.diff(starts).tolist()
+    known_dev = torch.from_numpy(np.ascontiguousarray(known).view(np.int32)).to(device)
+    pool = torch.empty((k + total, 8), dtype=torch.int32, device=device)
+    pool[:k] = known_dev
+    index = torch.from_numpy(
+        np.concatenate([lefts, rights, starts]).astype(np.int32)).to(device)
+    starts = starts.tolist()
+    run = lambda: sha256.launch_waves(pool, index, starts)  # noqa: E731
+    run()
+    plain_fn = lambda: sha256.hash_waves_plain(  # noqa: E731
+        known_dev, torch.from_numpy(lefts).to(device),
+        torch.from_numpy(rights).to(device), starts)
+    plain = plain_fn()
+    torch.cuda.synchronize()
+    for w, (b, e) in enumerate(zip(starts[:-1], starts[1:])):
+        err = _word_err(pool[k + b:k + e], plain[b:e]) if e > b else 0
+        if err:
+            raise AssertionError(f"K1 != plain at wave {w} ({e - b} messages): "
+                                 f"max |diff| {err}")
+    launches = sha256.wave_launches(sizes)
+    ms = cuda_ms(run)
+    tail_max = sha256.TAIL_MAX_MESSAGES
+    sha256.TAIL_MAX_MESSAGES = 0  # every wave a grid launch
+    try:
+        untailed_ms = cuda_ms(run)
+    finally:
+        sha256.TAIL_MAX_MESSAGES = tail_max
+    return {"known": k, "messages": total, "waves": len(sizes), "sizes": sizes,
+            "launches": launches, "ms": ms, "untailed_ms": untailed_ms,
+            "plain_ms": cuda_ms(plain_fn, iters=3, warmup=1), "run": run}
+
+
+def phase_ssz_hasher(spec, post, device: str = "cuda") -> dict:
     from consensus_specs_tpu_torch.ops import sha256
     from consensus_specs_tpu_torch.ssz import hashing
 
-    encoded = bytes(post.encode_bytes())
-    fresh_torch = spec.BeaconState.decode_bytes(encoded)
-    fresh_host = spec.BeaconState.decode_bytes(encoded)
-    # keep each K1 input of this path, to check and time K1 at its shapes
-    recorded = []
-    launch_k1 = sha256._launch_k1
+    main_root = bytes(post.hash_tree_root())
+    t0 = time.perf_counter()
+    fresh = spec.BeaconState.decode_bytes(bytes(post.encode_bytes())).get_backing()
+    print(f"fresh decode of the post-state: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    recorded_words, recorded_waves = [], []
+    launch_k1, hash_waves_u32 = sha256._launch_k1, sha256.hash_waves_u32
 
     def recording_launch(words):
-        recorded.append(words)
+        recorded_words.append(words)
         return launch_k1(words)
 
-    sha256.reset_counts()
-    sha256._launch_k1 = recording_launch
-    hashing.set_backend("torch", device="cuda")
-    try:
+    def recording_waves(known, waves, device):
         t0 = time.perf_counter()
-        root_torch = bytes(fresh_torch.hash_tree_root())
-        torch.cuda.synchronize()
-        t_torch = time.perf_counter() - t0
-    finally:
-        hashing.set_backend("hashlib")
-        sha256._launch_k1 = launch_k1
-    launches = sha256.counts["sha256_block64"]
-    t0 = time.perf_counter()
-    root_host = bytes(fresh_host.hash_tree_root())
-    t_host = time.perf_counter() - t0
-    print(f"ssz hasher: torch backend {t_torch:.3f} s ({launches} K1 "
-          f"launches), hashlib {t_host:.3f} s; root {root_torch.hex()}",
-          flush=True)
-    if root_torch != root_host:
-        raise AssertionError("K1-backed SSZ root differs from hashlib's")
-    if root_torch != bytes(post.hash_tree_root()):
-        raise AssertionError("fresh decode root differs from the main path's")
-    if launches == 0 or len(recorded) != launches:
-        raise AssertionError(f"the torch hashing backend launched K1 "
-                             f"{launches} times, {len(recorded)} recorded")
+        out = hash_waves_u32(known, waves, device)
+        recorded_waves.append((known, waves, time.perf_counter() - t0))
+        return out
 
-    # K1 at this path's shapes: each launch's input against the plain
-    # version, and the sums of the times of one call at each shape
-    max_err, k1_ms, plain_ms, messages = 0, 0.0, 0.0, 0
-    for words in recorded:
+    def timed_root(route: str, record: bool) -> dict:
+        """``hash_tree_root`` of an unhashed copy of the fresh tree: under
+        hashlib, or the ``"torch"`` backend's per-level or wave route, the
+        kernels' counts zeroed just before it."""
+        state = spec.BeaconState.view_from_backing(unhashed_copy(fresh))
+        if route != "hashlib":
+            hashing.set_backend("torch", device=device)
+        if route == "per-level":
+            hashing.register_wave_backend("torch", None)  # per level only
+        if record:
+            sha256._launch_k1 = recording_launch
+            sha256.hash_waves_u32 = recording_waves
+        sha256.reset_counts()
+        try:
+            with GcPauses() as pauses:
+                t0 = time.perf_counter()
+                root = bytes(state.hash_tree_root())
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            hashing.set_backend("hashlib")
+            sha256._launch_k1, sha256.hash_waves_u32 = launch_k1, hash_waves_u32
+        if root != main_root:
+            raise AssertionError(f"the {route} root differs from the main path's")
+        return {"seconds": seconds, "launches": sha256.counts["sha256_block64"],
+                "gc": pauses}
+
+    # in turns: per-level, wave, wave, per-level; the first of each recorded
+    runs = [("hashlib", timed_root("hashlib", False)),
+            ("per-level", timed_root("per-level", True)),
+            ("wave", timed_root("wave", True)),
+            ("wave", timed_root("wave", False)),
+            ("per-level", timed_root("per-level", False))]
+    print("hash_tree_root of the fresh post-state, wall, in turns: " + "; ".join(
+        f"{route} {run['seconds']:.3f} s ({run['launches']} K1 launches, "
+        f"{run['gc']})" for route, run in runs)
+        + f"; root {main_root.hex()} for every route", flush=True)
+    per_level, wave = runs[1][1], runs[2][1]
+    if len(recorded_words) != per_level["launches"] or not recorded_words:
+        raise AssertionError(f"the per-level route launched K1 "
+                             f"{per_level['launches']} times, "
+                             f"{len(recorded_words)} recorded")
+    if not recorded_waves:
+        raise AssertionError("the wave route never called the wave hasher")
+
+    # the wave route, K1's path: each recorded schedule on the card again
+    schedules = [wave_schedule_on_card(known, waves, device)
+                 for known, waves, _ in recorded_waves]
+    planned = sum(len(sc["launches"]) for sc in schedules)
+    if wave["launches"] != planned:
+        raise AssertionError(f"the wave route launched K1 {wave['launches']} "
+                             f"times; its plan has {planned}")
+    messages = sum(sc["messages"] for sc in schedules)
+    known_rows = sum(sc["known"] for sc in schedules)
+    for i, sc in enumerate(schedules):
+        grid = [sc["sizes"][f] for f, e in sc["launches"]
+                if sc["sizes"][f] > sha256.TAIL_MAX_MESSAGES]
+        tails = [(e - f, sum(sc["sizes"][f:e])) for f, e in sc["launches"]
+                 if sc["sizes"][f] <= sha256.TAIL_MAX_MESSAGES]
+        print(f"wave schedule {i}: {sc['waves']} waves, {sc['messages']} "
+              f"messages over {sc['known']} known digests; K1 launches "
+              f"{len(sc['launches'])}: {len(grid)} grid waves (N = "
+              f"{', '.join(map(str, grid))}) and {len(tails)} one-block tail(s) "
+              f"({', '.join(f'{w} waves, {m} messages' for w, m in tails)}); "
+              f"every wave == plain on the card; the wave hasher's call "
+              f"(upload, launches, download) {recorded_waves[i][2]:.3f} s",
+              flush=True)
+    ms = sum(sc["ms"] for sc in schedules)
+    untailed_ms = sum(sc["untailed_ms"] for sc in schedules)
+    plain_ms = sum(sc["plain_ms"] for sc in schedules)
+    ops_ms = messages * sha256.OPS_PER_MESSAGE / PEAK_INT32_OPS_PER_S * 1e3
+    # each input read once (the known digests, two indices a message), each
+    # output written once (a digest a message)
+    bytes_ms = (32 * known_rows + 40 * messages) / PEAK_BYTES_PER_S * 1e3
+    bound, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                       else (bytes_ms, "bytes"))
+    kernel_ms = None
+    if profiler_sees_device():
+        spans = [retried(lambda sc=sc: profiled_schedule_ms(
+            sc["run"], "sha256_", len(sc["launches"]))) for sc in schedules]
+        if None not in spans:
+            kernel_ms = sum(spans)
+
+    # the per-level route's K1 launches, each input against the plain
+    # version, and the sum of the times of one call at each shape
+    max_err, route_ms, route_plain_ms = 0, 0.0, 0.0
+    for words in recorded_words:
         err = _word_err(sha256.sha256_block64(words), _plain_on(words))
         max_err = max(max_err, err)
         if err:
-            raise AssertionError(f"K1 != plain at the SSZ hasher's N="
+            raise AssertionError(f"K1 != plain at the per-level route's N="
                                  f"{words.shape[0]}: max |diff| {err}")
-        k1_ms += cuda_ms(lambda w=words: sha256.sha256_block64(w))
-        plain_ms += cuda_ms(lambda w=words: _plain_on(w), iters=3, warmup=1)
-        messages += words.shape[0]
-    bound, bound_by = bound_ms(messages, sha256)
-    print(f"K1 == plain at the SSZ hasher's {launches} launch shapes (N = "
-          f"{', '.join(str(w.shape[0]) for w in recorded)}; {messages} "
-          f"messages): K1 {k1_ms:.5f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound:.5f} ms ({bound_by}), summed over the launches", flush=True)
-    return {"launches": launches, "max_abs_err": max_err, "ms": k1_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+        route_ms += cuda_ms(lambda w=words: sha256.sha256_block64(w))
+        route_plain_ms += cuda_ms(lambda w=words: _plain_on(w), iters=3, warmup=1)
+    route_messages = sum(w.shape[0] for w in recorded_words)
+    kernel_text = ("not measured (no device time in the profiler, or a "
+                   "kernel missing)" if kernel_ms is None else f"{kernel_ms:.5f} ms")
+    print(f"K1 on the wave route ({messages} messages, {wave['launches']} "
+          f"launches): events {ms:.5f} ms over the whole schedule, kernel only "
+          f"(torch.profiler, first kernel's start to last one's end) "
+          f"{kernel_text}; with no tail (every wave a grid launch) "
+          f"{untailed_ms:.5f} ms; plain {plain_ms:.3f} ms; bound {bound:.5f} ms "
+          f"({bound_by}; operations {ops_ms:.5f}, bytes {bytes_ms:.5f}). "
+          f"Per-level route: K1 == plain at its {len(recorded_words)} launch "
+          f"shapes (N = {', '.join(str(w.shape[0]) for w in recorded_words)}; "
+          f"{route_messages} messages), K1 {route_ms:.5f} ms summed over the "
+          f"launches, plain {route_plain_ms:.3f} ms", flush=True)
+    print(f"wave schedule against the per-level route's K1 launches: "
+          f"{ms:.5f} / {route_ms:.5f} ms = {ms / route_ms:.3f}", flush=True)
+    return {"launches": wave["launches"], "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "kernel_ms": kernel_ms, "untailed_ms": untailed_ms,
+            "per_level_route_ms": route_ms,
+            "per_level_route_launches": per_level["launches"],
+            "wall_s": {route: [r["seconds"] for n, r in runs if n == route]
+                       for route in ("hashlib", "per-level", "wave")}}
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -2047,7 +2245,8 @@ def main(argv=None) -> int:
         "replaces": "consensus_specs_tpu/ops/sha256_pallas.py:87",
         # K1 left the main path (its root is K2's, and phase 3 checks that
         # it launched K1 no time); it serves the SSZ hasher, so its
-        # launches, times and bound are those of that path (phase 4)
+        # launches, times and bound are those of that path's wave route, the
+        # whole schedule of a fresh post-state (phase 4)
         "launches": ssz["launches"],
         "max_abs_err": max(k1["max_abs_err"], ssz["max_abs_err"]),
         "ms": ssz["ms"],
@@ -2055,6 +2254,11 @@ def main(argv=None) -> int:
         "bound_ms": ssz["bound_ms"],
         "bound_by": ssz["bound_by"],
         "library_ms": None,
+        "kernel_ms": ssz["kernel_ms"],
+        # the same tree through the per-level route: its K1 launches summed
+        "per_level_route_ms": ssz["per_level_route_ms"],
+        "per_level_route_launches": ssz["per_level_route_launches"],
+        "dense_2e20_ms": k1["dense_2e20_ms"],
     }
     k2_entry = {
         "name": "u64_list_root",

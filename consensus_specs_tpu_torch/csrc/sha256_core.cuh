@@ -1,7 +1,10 @@
 // SHA-256 compression shared by the merkle kernels: K1 (sha256.cu) and
 // K2 (sha256_tree.cu).  Both hash 64-byte merkle parents: one message-block
 // compression, then the constant padding block (0x80, zeros, bit length
-// 512), whose schedule plus K is the constant table kKPad.  The constants
+// 512), whose schedule plus K is the constant table kKPad.  The round is
+// written once over a pipe policy (below): K2 and K1's tail take AluPipe,
+// K1's grid launches AluPipe for the message block and FmaPipe for the
+// padding block.  The constants
 // sit in an anonymous namespace, so each source that includes this header
 // holds its own copy and the two link into one library without clashing.
 #pragma once
@@ -44,55 +47,128 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
 }
 
+// -- the integer pipes --------------------------------------------------------
+//
+// Hopper issues one warp instruction a clock on each SM sub-partition.  Logic
+// operations, shifts and IADD3 run on its 16-lane ALU pipe, IMAD on its
+// 16-lane FMA pipe, and each takes two clocks a warp instruction, so a stream
+// that sends everything to one pipe issues at half the rate the two reach
+// together.  A compression round's ten logic operations (six funnel-shift
+// rotates, the xors of Sigma0 and Sigma1, Ch and Maj, one LOP3 each) run only
+// on the ALU pipe; its adds may run on either.  The compression is written
+// once, over a pipe policy that supplies the adds and the sigmas:
+//
+// AluPipe: plain C++ adds, which ptxas sums three terms at a time in IADD3s
+//   on the ALU pipe: the fewest instructions and the shortest dependent chain
+//   (about 2,400 SASS instructions a message, 2,034 of them on the ALU pipe).
+//   For hashes that wait on each other: K2's tree levels, K1's one-block tail.
+// FmaPipe: every add one IMAD by a run-time 1 (a kernel argument, written as
+//   PTX, so that neither compiler folds it back into an IADD3) and the
+//   schedule's two plain right shifts as the high word of a multiply by
+//   2^(32 - n) (IMAD.HI).  More instructions and a longer chain, but fewer
+//   on the ALU pipe, which bounds a card full of warps: K1's grid launches
+//   hash the padding block through it (sha256.cu gives the measurements).
+
+struct AluPipe {
+  __device__ explicit AluPipe(uint32_t) {}
+  __device__ __forceinline__ uint32_t add(uint32_t x, uint32_t y) const {
+    return x + y;
+  }
+  __device__ __forceinline__ uint32_t big_sigma0(uint32_t a) const {
+    return rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+  }
+  __device__ __forceinline__ uint32_t big_sigma1(uint32_t e) const {
+    return rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+  }
+  __device__ __forceinline__ uint32_t small_sigma0(uint32_t x) const {
+    return rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3);
+  }
+  __device__ __forceinline__ uint32_t small_sigma1(uint32_t x) const {
+    return rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10);
+  }
+};
+
+struct FmaPipe : AluPipe {
+  uint32_t one, m29, m22;  // 1, 2^29, 2^22, none of them known to the compiler
+  __device__ explicit FmaPipe(uint32_t one_)
+      : AluPipe(one_), one(one_), m29(one_ << 29), m22(one_ << 22) {}
+  __device__ __forceinline__ uint32_t add(uint32_t x, uint32_t y) const {
+    uint32_t r;
+    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(one), "r"(y));
+    return r;
+  }
+  __device__ __forceinline__ uint32_t small_sigma0(uint32_t x) const {
+    return rotr(x, 7) ^ rotr(x, 18) ^ __umulhi(x, m29);  // x >> 3
+  }
+  __device__ __forceinline__ uint32_t small_sigma1(uint32_t x) const {
+    return rotr(x, 17) ^ rotr(x, 19) ^ __umulhi(x, m22);  // x >> 10
+  }
+};
+
+// One round; kw = K[i] + W[i].  Under AluPipe the expressions are the
+// standard's, T1 = h + Sigma1(e) + Ch + kw, e' = d + T1, a' = T1 + Sigma0(a)
+// + Maj, which ptxas folds into IADD3s.
+template <class Pipe>
 __device__ __forceinline__ void round_step(uint32_t& a, uint32_t& b, uint32_t& c,
                                            uint32_t& d, uint32_t& e, uint32_t& f,
-                                           uint32_t& g, uint32_t& h, uint32_t kw) {
-  const uint32_t s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+                                           uint32_t& g, uint32_t& h, uint32_t kw,
+                                           const Pipe& p) {
+  const uint32_t s1 = p.big_sigma1(e);
   const uint32_t ch = (e & f) ^ (~e & g);
-  const uint32_t t1 = h + s1 + ch + kw;
-  const uint32_t s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+  const uint32_t t1 = p.add(p.add(p.add(h, s1), ch), kw);
+  const uint32_t s0 = p.big_sigma0(a);
   const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
   h = g;
   g = f;
   f = e;
-  e = d + t1;
+  e = p.add(d, t1);
   d = c;
   c = b;
   b = a;
-  a = t1 + s0 + maj;
+  a = p.add(p.add(t1, s0), maj);
+}
+
+template <class Pipe>
+__device__ __forceinline__ void feed_forward(uint32_t st[8], uint32_t a, uint32_t b,
+                                             uint32_t c, uint32_t d, uint32_t e,
+                                             uint32_t f, uint32_t g, uint32_t h,
+                                             const Pipe& p) {
+  st[0] = p.add(st[0], a); st[1] = p.add(st[1], b);
+  st[2] = p.add(st[2], c); st[3] = p.add(st[3], d);
+  st[4] = p.add(st[4], e); st[5] = p.add(st[5], f);
+  st[6] = p.add(st[6], g); st[7] = p.add(st[7], h);
 }
 
 // Compression of the message block: schedule kept as a rolling 16-word
 // window in registers (every index is a compile-time constant once the
 // loop is unrolled).
-__device__ __forceinline__ void compress_message(uint32_t st[8], uint32_t w[16]) {
+template <class Pipe>
+__device__ __forceinline__ void compress_message(uint32_t st[8], uint32_t w[16],
+                                                 const Pipe& p) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     if (i >= 16) {
-      const uint32_t w15 = w[(i - 15) & 15];
-      const uint32_t w2 = w[(i - 2) & 15];
-      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-      w[i & 15] = w[i & 15] + s0 + w[(i - 7) & 15] + s1;
+      const uint32_t s0 = p.small_sigma0(w[(i - 15) & 15]);
+      const uint32_t s1 = p.small_sigma1(w[(i - 2) & 15]);
+      w[i & 15] = p.add(p.add(p.add(w[i & 15], s0), w[(i - 7) & 15]), s1);
     }
-    round_step(a, b, c, d, e, f, g, h, kK[i] + w[i & 15]);
+    round_step(a, b, c, d, e, f, g, h, p.add(kK[i], w[i & 15]), p);
   }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+  feed_forward(st, a, b, c, d, e, f, g, h, p);
 }
 
 // Compression of the constant padding block: no schedule work.
-__device__ __forceinline__ void compress_padding(uint32_t st[8]) {
+template <class Pipe>
+__device__ __forceinline__ void compress_padding(uint32_t st[8], const Pipe& p) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    round_step(a, b, c, d, e, f, g, h, kKPad[i]);
+    round_step(a, b, c, d, e, f, g, h, kKPad[i], p);
   }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+  feed_forward(st, a, b, c, d, e, f, g, h, p);
 }
 
 // The initial hash value H0.
@@ -100,6 +176,17 @@ __device__ __forceinline__ void init_state(uint32_t st[8]) {
   st[0] = 0x6a09e667u; st[1] = 0xbb67ae85u; st[2] = 0x3c6ef372u;
   st[3] = 0xa54ff53au; st[4] = 0x510e527fu; st[5] = 0x9b05688cu;
   st[6] = 0x1f83d9abu; st[7] = 0x5be0cd19u;
+}
+
+// SHA-256 of one 64-byte message (16 big-endian words) into st: the
+// message block's compression through pipe m, the padding block's through p.
+template <class MessagePipe, class PaddingPipe>
+__device__ __forceinline__ void hash64(uint32_t w[16], uint32_t st[8],
+                                       const MessagePipe& m,
+                                       const PaddingPipe& p) {
+  init_state(st);
+  compress_message(st, w, m);
+  compress_padding(st, p);
 }
 
 }  // namespace

@@ -25,8 +25,9 @@
 // the schedule computed by a partner warp did not bring a level lower
 // (PERF.md has the numbers), so the design keeps the compression and cuts
 // what surrounds it:
-// 1. The compression is sha256_core.cuh, shared with K1: its adds are
-//    three-input IADD3s, the fewest instructions a message.
+// 1. The compression is sha256_core.cuh, shared with K1, through its
+//    AluPipe: its adds are three-input IADD3s, the fewest instructions a
+//    message and the shortest chain.
 // 2. Packing happens in the load.  A chunk is 4 LE uint64 values, 32
 //    contiguous bytes, and its SHA-256 words are the byte-reversed 32-bit
 //    words of the same memory.  Each CTA reads its slice as coalesced
@@ -121,8 +122,8 @@ tree_reduce_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
     }
     if (busy) {
       init_state(st);
-      compress_message(st, w);
-      compress_padding(st);
+      compress_message(st, w, AluPipe(1u));
+      compress_padding(st, AluPipe(1u));
     }
     if (active > kWarp) {
       __syncthreads();  // every pair of this level is read before any is overwritten

@@ -1,4 +1,4 @@
-"""Batched SHA-256 for merkle layer hashing, in torch and CUDA.
+"""Batched SHA-256 for merkle hashing, in torch and CUDA.
 
 Each merkle parent is SHA-256 over exactly 64 bytes (two child roots) —
 one message block plus one constant padding block (reference semantics:
@@ -6,17 +6,30 @@ eth2spec/utils/hash_function.py:8; merkleize rules
 ssz/simple-serialize.md:210-248).
 
 Port of ``consensus_specs_tpu/ops/sha256_jax.py`` (``sha256_block64``,
-``hash_blocks_u32``, ``hash_layer``) and of the Pallas kernel
+``hash_blocks_u32``, ``hash_layer``, and the wave hasher ``hash_waves_u32``
+/ ``hash_waves``) and of the Pallas kernel
 ``consensus_specs_tpu/ops/sha256_pallas.py`` (``_block64_t_impl``), which
 becomes the hand-written CUDA kernel ``csrc/sha256.cu`` (K1; its bound and
 design are noted in the source).
 
-``sha256_block64`` is the one entry: on a CUDA tensor it launches K1 (or
-raises), on a CPU tensor it runs ``sha256_block64_plain``, the plain torch
-version of the same function.  The same library holds K2
-(``csrc/sha256_tree.cu``), the merkle root of a packed uint64 list in one
-launch up to 1,024 chunks, two up to 2^20 and three up to 2^30;
-``launch_u64_list_root`` binds it, and
+Two entries reach K1, each launching it on a CUDA device (or raising
+``KernelError``) and running the plain torch version on a CPU device:
+
+* ``sha256_block64``: N dense 64-byte messages, [N, 16] words -> [N, 8]
+  (``sha256_block64_plain`` on the CPU); ``hash_layer`` hashes one list of
+  64-byte strings through it.
+* ``hash_waves_u32`` / ``hash_waves``: a whole merkle wave schedule over a
+  digest pool (the known child digests, then every wave's outputs in
+  schedule order), one upload of the pool's known rows and one of all the
+  index arrays, every wave on the card with no host synchronisation between
+  launches, one download (``hash_waves_plain`` on the CPU: a torch gather
+  from the pool and the plain version, wave by wave).  Waves of more than
+  ``TAIL_MAX_MESSAGES`` messages are one launch each; each run of smaller
+  ones is one launch of one block (``wave_launches``).
+
+The same library holds K2 (``csrc/sha256_tree.cu``), the merkle root of a
+packed uint64 list in one launch up to 1,024 chunks, two up to 2^20 and
+three up to 2^30; ``launch_u64_list_root`` binds it, and
 ``ops/merkle_resident.packed_u64_root`` is its entry.  Every failure of
 the kernels (no compiler, a failed build or load, a launch error, a pass
 count off its plan) raises ``KernelError``, so that callers can tell it
@@ -26,14 +39,14 @@ bit patterns; the plain version computes on int64 masked to 32 bits,
 because torch on the CPU has no shift or add for uint32.  The conversions between the two are exact
 (``to_int32_bits`` / ``from_int32_bits``).
 
-Registered as the ``"torch"`` SSZ hashing backend:
-``ssz.hashing.set_backend("torch", device=...)``.
+Registered as the ``"torch"`` SSZ hashing backend, layer and wave hasher
+both: ``ssz.hashing.set_backend("torch", device=...)``.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import List
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,14 +87,20 @@ OPS_PER_MESSAGE = 2 * 64 * 14 + 48 * 10 + 16
 BYTES_PER_MESSAGE = 96
 
 # Kernel launches, counted by the wrappers where they launch the kernels
-# and nowhere else (a run shows the main path went through them): K1, and
-# K2's passes (one or two a root at the main path's sizes)
+# and nowhere else (a run shows the main path went through them): K1 (its
+# dense launches, a wave schedule's grid launches and its one-block tails),
+# and K2's passes (one or two a root at the main path's sizes)
 counts = {"sha256_block64": 0, "u64_list_root": 0}
 
 
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+# Waves of at most this many messages run in K1's one-block tail launches
+# (kTailThreads in csrc/sha256.cu): one thread a message of a wave
+TAIL_MAX_MESSAGES = 256
 
 
 class KernelError(RuntimeError):
@@ -184,6 +203,13 @@ def _library() -> ctypes.CDLL:
         lib.sha256_block64_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         lib.sha256_block64_launch.restype = ctypes.c_int
+        ptr = ctypes.c_void_p
+        lib.sha256_wave_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr]
+        lib.sha256_wave_launch.restype = ctypes.c_int
+        lib.sha256_waves_tail_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ctypes.c_int, ptr, ptr]
+        lib.sha256_waves_tail_launch.restype = ctypes.c_int
         lib.u64_list_root_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -289,3 +315,162 @@ def hash_layer(blocks: List[bytes], device) -> List[bytes]:
     words = np.frombuffer(b"".join(blocks), dtype=">u4").reshape(n, 16).astype(np.uint32)
     flat = hash_blocks_u32(words, device).astype(">u4").tobytes()
     return [flat[i * 32:(i + 1) * 32] for i in range(n)]
+
+
+# -- wave schedules ----------------------------------------------------------
+#
+# A wave schedule hashes a whole merkle (sub)tree: ``known`` is the already
+# rooted child digests, and wave w is a pair of index arrays (left, right)
+# into a digest pool whose rows are the known digests, then every wave's
+# outputs in schedule order, so that a wave may read any row the waves
+# before it filled.  The outputs of every wave come back concatenated.
+
+
+def wave_launches(sizes: Sequence[int]) -> List[Tuple[int, int]]:
+    """K1's launches for a schedule of waves of these sizes, in order, as
+    (first wave, end wave): a wave of more than ``TAIL_MAX_MESSAGES``
+    messages is a grid launch of its own, and each run of consecutive
+    smaller waves one one-block tail launch (none for a run without a
+    message)."""
+    launches, w = [], 0
+    while w < len(sizes):
+        if sizes[w] > TAIL_MAX_MESSAGES:
+            launches.append((w, w + 1))
+            w += 1
+            continue
+        end = w
+        while end < len(sizes) and sizes[end] <= TAIL_MAX_MESSAGES:
+            end += 1
+        if any(sizes[w:end]):
+            launches.append((w, end))
+        w = end
+    return launches
+
+
+def wave_indices(n_known: int, waves) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(left rows, right rows, wave starts) of a schedule as int64 arrays:
+    every wave's rows concatenated, and the schedule position at which each
+    wave starts followed by the total.  Raises ``ValueError`` unless every
+    index is a pool row that the known digests or an earlier wave filled,
+    and every row fits int32."""
+    sizes = []
+    for left, right in waves:
+        if len(left) != len(right):
+            raise ValueError("a wave's left and right index arrays differ in length")
+        sizes.append(len(left))
+    starts = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=starts[1:])
+    total = int(starts[-1])
+    if n_known + total >= 2**31:
+        raise ValueError(f"a pool of {n_known + total} rows does not fit int32 indices")
+    if total == 0:
+        empty = np.zeros(0, dtype=np.int64)
+        return empty, empty, starts
+    lefts = np.concatenate([np.asarray(left, dtype=np.int64).reshape(-1)
+                            for left, _ in waves])
+    rights = np.concatenate([np.asarray(right, dtype=np.int64).reshape(-1)
+                             for _, right in waves])
+    limit = np.repeat(n_known + starts[:-1], sizes)
+    if (min(lefts.min(), rights.min()) < 0 or (lefts >= limit).any()
+            or (rights >= limit).any()):
+        raise ValueError("a wave reads a pool row that neither the known "
+                         "digests nor an earlier wave filled")
+    return lefts, rights, starts
+
+
+def hash_waves_plain(known: torch.Tensor, lefts: torch.Tensor,
+                     rights: torch.Tensor, starts: Sequence[int]) -> torch.Tensor:
+    """The plain version of a wave schedule, on ``known``'s device: [K, 8]
+    int32 known digest words, the int64 pool rows of every message's
+    children and the wave starts (``wave_indices``) -> [total, 8] int32
+    outputs, each wave a torch gather from the pool and
+    ``sha256_block64_plain``."""
+    k, total = known.shape[0], int(starts[-1])
+    pool = torch.empty((k + total, 8), dtype=torch.int64, device=known.device)
+    pool[:k] = from_int32_bits(known)
+    for begin, end in zip(starts[:-1], starts[1:]):
+        if end > begin:
+            words = torch.cat([pool[lefts[begin:end]], pool[rights[begin:end]]], dim=1)
+            pool[k + begin:k + end] = sha256_block64_plain(words)
+    return to_int32_bits(pool[k:])
+
+
+def launch_waves(pool: torch.Tensor, index: torch.Tensor,
+                 starts: Sequence[int]) -> None:
+    """K1 over a wave schedule on the pool's card and current stream, with
+    no synchronisation: ``pool`` is a [K + total, 8] int32 tensor whose
+    first K rows hold the known digests and whose other rows receive the
+    outputs; ``index`` is one int32 tensor of the left rows, the right rows
+    and the starts (``wave_indices``, concatenated).  Launches as
+    ``wave_launches`` plans, each counted; a refused launch raises
+    ``KernelError``."""
+    total = int(starts[-1])
+    n_known = pool.shape[0] - total
+    if (pool.dtype != torch.int32 or index.dtype != torch.int32
+            or pool.device.type != "cuda" or index.device != pool.device):
+        raise ValueError("launch_waves takes int32 tensors on one CUDA device")
+    if (pool.dim() != 2 or pool.shape[1] != 8 or n_known < 0
+            or index.shape != (2 * total + len(starts),)
+            or not pool.is_contiguous() or not index.is_contiguous()):
+        raise ValueError("launch_waves takes a contiguous [K + total, 8] pool "
+                         "and index of 2 * total + waves + 1")
+    lib = _library()
+    left = index.data_ptr()
+    right = left + 4 * total
+    first_start = right + 4 * total
+    out = pool.data_ptr() + 32 * n_known
+    sizes = [int(e - b) for b, e in zip(starts[:-1], starts[1:])]
+    with torch.cuda.device(pool.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for first, end in wave_launches(sizes):
+            if sizes[first] > TAIL_MAX_MESSAGES:  # a grid launch, one wave
+                rc = lib.sha256_wave_launch(pool.data_ptr(), left, right, out,
+                                            int(starts[first]), int(starts[end]),
+                                            stream)
+            else:
+                rc = lib.sha256_waves_tail_launch(
+                    pool.data_ptr(), left, right, first_start + 4 * first,
+                    end - first, out, stream)
+            if rc != 0:
+                raise KernelError(f"K1 launch for waves {first}..{end - 1} "
+                                  f"failed with CUDA error {rc}")
+            counts["sha256_block64"] += 1
+
+
+def hash_waves_u32(known: np.ndarray, waves, device) -> np.ndarray:
+    """A whole wave schedule on ``device``: ``known`` [K, 8] big-endian
+    uint32 digest words, ``waves`` (left, right) int32 index arrays into the
+    pool -> every wave's outputs concatenated, [total, 8] uint32.  CUDA
+    uploads the known rows and all the index arrays in one copy each, runs
+    every wave (``launch_waves``) and downloads the outputs once; the CPU
+    runs ``hash_waves_plain``."""
+    known = np.ascontiguousarray(known, dtype=np.uint32).reshape(-1, 8)
+    k = known.shape[0]
+    lefts, rights, starts = wave_indices(k, waves)
+    total = int(starts[-1])
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"hash_waves runs on cuda or cpu, not {device}")
+    if total == 0:
+        return np.zeros((0, 8), dtype=np.uint32)
+    known_t = torch.from_numpy(known.view(np.int32))
+    if device.type == "cpu":
+        out = hash_waves_plain(known_t, torch.from_numpy(lefts),
+                               torch.from_numpy(rights), starts.tolist())
+        return out.numpy().view(np.uint32)
+    pool = torch.empty((k + total, 8), dtype=torch.int32, device=device)
+    pool[:k].copy_(known_t)
+    index = torch.from_numpy(
+        np.concatenate([lefts, rights, starts]).astype(np.int32)).to(device)
+    launch_waves(pool, index, starts.tolist())
+    return pool[k:].cpu().numpy().view(np.uint32)
+
+
+def hash_waves(known: List[bytes], waves, device) -> List[bytes]:
+    """Wave backend for ssz.hashing: ``known`` 32-byte digests, ``waves``
+    (left, right) index arrays into [known | outputs so far] -> the 32-byte
+    outputs of every wave, concatenated."""
+    k = len(known)
+    words = np.frombuffer(b"".join(known), dtype=">u4").reshape(k, 8).astype(np.uint32)
+    flat = hash_waves_u32(words, waves, device).astype(">u4").tobytes()
+    return [flat[i:i + 32] for i in range(0, len(flat), 32)]

@@ -3,14 +3,19 @@
 This is the hasher plugin seam: the reference hard-codes
 ``hashlib.sha256`` (eth2spec/utils/hash_function.py:8-9); here the merkle
 layer-hash is pluggable so a whole tree layer can be hashed as one batch —
-on host via hashlib, or on the GPU via the hand-written SHA-256 kernel in
+on host via hashlib, or on the GPU via the hand-written SHA-256 kernel K1 in
 ``consensus_specs_tpu_torch.ops.sha256`` (the ``"torch"`` backend).
 
-The batch API is ``hash_layer(blocks)``: ``blocks`` is a list of 64-byte
+Two batch APIs.  ``hash_layer(blocks)``: ``blocks`` is a list of 64-byte
 inputs (two concatenated 32-byte child roots); the result is the list of
-32-byte parent digests.  Merkleization in ``node.py`` always funnels
-through the active backend, so swapping backends changes performance only,
-never bytes.
+32-byte parent digests.  A backend may also register a wave hasher
+(``register_wave_backend``), which runs a whole merkle wave schedule at
+once: ``node.merkle_root`` hands it every tree of at least
+``MIN_DEVICE_TREE`` unhashed branch nodes, so that the ``"torch"`` backend
+uploads the known child digests once, hashes every wave on the card and
+downloads every digest once.  The hashlib backend has none.  Merkleization
+in ``node.py`` always funnels through the active backend, so swapping
+backends changes performance only, never bytes.
 """
 from __future__ import annotations
 
@@ -44,22 +49,52 @@ _active: Callable[[List[bytes]], List[bytes]] = _hashlib_hash_layer
 MIN_DEVICE_BATCH = 256
 
 
+# Trees with fewer unhashed branch nodes than this are hashed one wave at
+# a time (``hash_layer``) even when the active backend has a wave hasher.
+MIN_DEVICE_TREE = 4096
+
+
 def register_backend(name: str, fn: Callable[[List[bytes]], List[bytes]]) -> None:
     _BACKENDS[name] = fn
 
 
+# -- whole-tree wave hashing (optional backend capability) ------------------
+#
+# A wave backend runs an entire merkle wave schedule in one call:
+# ``fn(known, waves) -> digests`` where ``known`` is the list of
+# already-rooted 32-byte child digests, ``waves`` is a list of
+# (left_idx, right_idx) int32 index-array pairs into the digest pool
+# (known rows first, then every prior wave's outputs), and the result is
+# the concatenated 32-byte outputs of every wave.  This removes the
+# per-tree-level host<->device round trip of layered hashing.
+
+_WAVE_BACKENDS: Dict[str, Callable] = {}
+
+
+def register_wave_backend(name: str, fn: Callable) -> None:
+    _WAVE_BACKENDS[name] = fn
+
+
+def get_wave_hasher():
+    """The active backend's whole-tree wave hasher, or None if the active
+    backend hashes per-layer only (hashlib default)."""
+    return _WAVE_BACKENDS.get(_active_name)
+
+
 # Device backends register lazily on selection (importing them pulls in
 # torch, which SSZ-only consumers must not pay for).  A lazy backend's
-# ``hash_layer`` takes a ``device=`` keyword, bound here when selected.
+# ``hash_layer`` and ``hash_waves`` take a ``device=`` keyword, bound here
+# when selected, to the same device.
 _LAZY_BACKENDS = {
     "torch": "consensus_specs_tpu_torch.ops.sha256",
 }
 
 
 def set_backend(name: str, device=None) -> None:
-    """Select the active layer hasher.  For ``"torch"``, ``device`` is
-    where layers are hashed: None means the CUDA card (raising on a host
-    without one); ``"cpu"`` must be asked for explicitly."""
+    """Select the active layer and wave hasher.  For ``"torch"``,
+    ``device`` is where layers and wave schedules are hashed: None means
+    the CUDA card (raising on a host without one); ``"cpu"`` must be asked
+    for explicitly."""
     global _active, _active_name
     if name in _LAZY_BACKENDS:
         import functools
@@ -68,8 +103,11 @@ def set_backend(name: str, device=None) -> None:
         from consensus_specs_tpu_torch._device import resolve_device
 
         module = importlib.import_module(_LAZY_BACKENDS[name])
-        register_backend(name, functools.partial(
-            module.hash_layer, device=resolve_device(device)))
+        resolved = resolve_device(device)
+        register_backend(name, functools.partial(module.hash_layer,
+                                                 device=resolved))
+        register_wave_backend(name, functools.partial(module.hash_waves,
+                                                      device=resolved))
     elif device is not None:
         raise ValueError(f"backend {name!r} takes no device")
     _active = _BACKENDS[name]

@@ -13,14 +13,19 @@ depends on them (reference: eth2spec/test/context.py:105-125):
 
 Device-first difference: root computation is *layer-batched*.  Instead of
 recursive child-then-parent hashing, all unhashed nodes are collected and
-hashed in ready-waves through ``hashing.hash_layer`` — one device dispatch
-per tree level — so a dirty 400k-validator registry becomes a handful of
-large SHA-256 batches instead of ~10^5 single hashes.
+hashed in ready-waves — through ``hashing.hash_layer`` one wave at a time,
+or, for a tree of at least ``hashing.MIN_DEVICE_TREE`` unhashed nodes under
+a backend with a wave hasher, the whole schedule in one call
+(``_hash_waves_on_device``) — so a dirty 400k-validator registry becomes a
+handful of large SHA-256 batches instead of ~10^5 single hashes.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from . import hashing
 from .hashing import ZERO_HASHES, hash_layer
 
 
@@ -107,11 +112,50 @@ def merkle_root(node: Node) -> bytes:
         waves.append(ready)
         rest = later
 
-    for wave in waves:
-        digests = hash_layer([n.left._root + n.right._root for n in wave])
-        for n, d in zip(wave, digests):
-            n._root = d
+    wave_hasher = (hashing.get_wave_hasher()
+                   if len(pending) >= hashing.MIN_DEVICE_TREE else None)
+    if wave_hasher is not None:
+        _hash_waves_on_device(waves, wave_hasher)
+    else:
+        for wave in waves:
+            digests = hash_layer([n.left._root + n.right._root for n in wave])
+            for n, d in zip(wave, digests):
+                n._root = d
     return node._root  # type: ignore[return-value]
+
+
+def _hash_waves_on_device(waves: List[List[BranchNode]], wave_hasher) -> None:
+    """Run the whole wave schedule in one wave-hasher call: the known child
+    digests go up once, every wave is a gather plus compress on the
+    device, and every produced digest comes down once (the per-level
+    round trip is what dominates layered hashing).  Pool rows: the rooted
+    children's digests in the order the waves reference them, then every
+    wave's outputs in schedule order."""
+    flat = [n for wave in waves for n in wave]
+    try:
+        # while the rows are read, each scheduled node's root slot holds its
+        # output position (an int), so that a child's root is either a
+        # digest (a known row) or the output it waits for; put back to None
+        # if anything fails
+        for i, n in enumerate(flat):
+            n._root = i  # type: ignore[assignment]
+        roots = [c._root for n in flat for c in (n.left, n.right)]
+        known = [r for r in roots if type(r) is not int]
+        rows = np.fromiter((r if type(r) is int else -1 for r in roots),
+                           dtype=np.int64, count=len(roots))
+        is_known = rows < 0
+        rows += len(known)
+        rows[is_known] = np.arange(len(known))
+        bounds = 2 * np.cumsum([len(wave) for wave in waves])[:-1]
+        index_waves = [(pair[0::2].astype(np.int32), pair[1::2].astype(np.int32))
+                       for pair in np.split(rows, bounds)]
+        digests = wave_hasher(known, index_waves)
+    except BaseException:
+        for n in flat:
+            n._root = None
+        raise
+    for n, d in zip(flat, digests):
+        n._root = d
 
 
 def branch_with_root(left: Node, right: Node, root: bytes) -> BranchNode:

@@ -5,8 +5,9 @@
   minimal phase0, altair, bellatrix and capella specs on the CPU (a
   subprocess, because the test session itself imports jax); through the
   port's ``testing/`` it then loads one of the reference's spec case
-  files and runs its config-override case on a CPU-built spec, and the
-  device BLS backend (``ops/bls``) decides one batch on the CPU;
+  files and runs its config-override case on a CPU-built spec, the
+  device BLS backend (``ops/bls``) decides one batch on the CPU, and the
+  ``"torch"`` hashing backend hashes one tree through its wave route;
 * a static scan of the port's sources finds no such import;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
@@ -77,6 +78,17 @@ try:
         [[pk], [pk]], [b"no jax", b"other"], [sig, sig]) == [True, False]
 finally:
     device_bls.set_device(previous)
+# the SSZ hasher's wave route (the tree floor lowered for a small tree)
+from consensus_specs_tpu_torch.ssz import hashing
+from consensus_specs_tpu_torch.ssz.types import List, uint64
+want = bytes(List[uint64, 1024](*range(200)).hash_tree_root())
+hashing.set_backend("torch", device="cpu")
+hashing.MIN_DEVICE_TREE = 1
+try:
+    assert hashing.get_wave_hasher() is not None
+    assert bytes(List[uint64, 1024](*range(200)).hash_tree_root()) == want
+finally:
+    hashing.set_backend("hashlib")
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))
@@ -130,7 +142,8 @@ def _imports(path: pathlib.Path):
 
 def test_static_scan_finds_no_jax_or_reference_import():
     sources = sorted((ROOT / PORT).rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "bls_phase_clock.py"]
+        ROOT / "chip_smoke.py", ROOT / "bls_phase_clock.py",
+        ROOT / "sha256_pipes.py"]
     assert len(sources) > 20
     offenders = [(str(p.relative_to(ROOT)), name)
                  for p in sources for name in _imports(p) if _is_forbidden(name)]

@@ -220,3 +220,29 @@ def test_k1_backend_list_root(cuda_device, monkeypatch):
     finally:
         hashing.set_backend("hashlib")
     assert root == expected
+
+
+def test_pipe_script_still_swaps_k1s_pipe():
+    """``sha256_pipes.py`` (K1's pipe policies timed on the card) swaps the
+    ``using K1MessagePipe`` and ``K1PaddingPipe`` lines of the source for
+    each candidate's, the policies it defines placed just before."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "sha256_pipes.py"
+    spec = importlib.util.spec_from_file_location("sha256_pipes", path)
+    pipes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pipes)
+    src = pathlib.Path(sha256._CSRC_DIR, "sha256.cu").read_text()
+    core = pathlib.Path(sha256._CSRC_DIR, "sha256_core.cuh").read_text()
+    for name, (message, padding) in pipes.CANDIDATES.items():
+        out = pipes.variant_source(src, name)
+        assert out.count(f"using K1MessagePipe = {message};\n"
+                         f"using K1PaddingPipe = {padding};") == 1
+        assert len(pipes.K1_PIPES.findall(out)) == 1
+        for pipe in (message, padding):
+            # defined in the core, or by the script and then just once
+            assert (f"struct {pipe} " in core) != (pipe in pipes.EXTRA_PIPES)
+            assert out.count(f"struct {pipe} ") == (pipe in pipes.EXTRA_PIPES)
+    with pytest.raises(RuntimeError):
+        pipes.variant_source(src.replace("using K1PaddingPipe", "using Other"),
+                             "FmaPipe")
