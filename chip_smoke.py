@@ -129,6 +129,23 @@ seconds:
    the "native" backend and then the "torch" one: the same passed and
    skipped counts, and K3 launched under "torch".
 
+9a. test vectors: the ssz_static runner at its mainnet setting
+   (``mode_random``, 5 cases a type; whole mainnet ``BeaconState``s among
+   them) for ``VECTOR_SSZ_FORKS`` (phase0 and capella: the four forks
+   took 263.9 s, over the phase's 240 s), generated under the ``"torch"`` SSZ
+   hasher on CUDA-built specs (K1: the wave route for the big trees, a wave
+   at a time for the small ones), then replayed by the consumer under the
+   same hasher and under hashlib; every case generated and passing both
+   replays; the cases, seconds and K1 launches of each.
+9b. the bls runner's 33 cases, generated with native BLS, replayed by the
+   consumer under the ``"torch"`` backend with its pairing checks on the
+   card: every verdict and output the vector's; K3, K4 and K5 launched.
+9c. the state runners' handlers whose case files are in
+   ``testing/reference_cases.TIER1``, generated at the minimal preset on
+   CUDA-built specs (native BLS, hashlib) and again on CPU-built ones: the
+   two trees byte-identical, file for file; the consumer replays the
+   card's tree on CUDA-built specs, every case passing, none skipped.
+
 The CPU legs take the boundary block's pre-state by its backing tree (no
 serialize round trip) and hash on the host (a CPU spec keeps the host
 hashing path), so they are independent of K2.  Every comparison is exact
@@ -143,13 +160,18 @@ fails before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
+import importlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2187,6 +2209,242 @@ def phase_bls_spec_cases(device: str = "cuda") -> dict:
     return tallies
 
 
+# -- phase 9: test vectors on the card --------------------------------------
+
+# 9a: the ssz_static runner's mainnet setting for these forks.  All four
+# (705 cases) took 263.9 s on an H100's host, over the phase's 240 s
+# budget, so it keeps the first fork and the last (340 cases)
+VECTOR_SSZ_FORKS = ("phase0", "capella")
+# 9b: the bls runner's cases, the reference's
+VECTOR_BLS_CASES = 33
+# 9c: the state runners with handlers whose case files are in TIER1
+VECTOR_STATE_RUNNERS = ("epoch_processing", "operations", "rewards", "sanity")
+
+
+def _quiet(fn, *args, **kwargs):
+    """``fn``'s result, its standard output (a line a case) dropped; a
+    failing case's traceback still reaches standard error."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def _on_card(device) -> bool:
+    """Whether ``device`` is the card (the CPU runs the plain versions,
+    which count no launch: a rehearsal of the phase)."""
+    return torch.device(device).type == "cuda"
+
+
+def _sync(device) -> None:
+    if _on_card(device):
+        torch.cuda.synchronize()
+
+
+def _k1_count() -> int:
+    from consensus_specs_tpu_torch.ops import sha256
+
+    return sha256.counts["sha256_block64"]
+
+
+def phase_vectors_ssz_static(forks=VECTOR_SSZ_FORKS, device: str = "cuda") -> dict:
+    """9a: the ssz_static runner at its mainnet setting (``mode_random``, 5
+    cases a type) for ``forks``, generated under the ``"torch"`` SSZ hasher
+    on ``device`` with specs built there, then replayed by the consumer
+    twice: under the same hasher, and under hashlib (the independent leg).
+    Every case must generate and pass both replays; K1 must launch in the
+    generation and in the first replay, and not in the hashlib one."""
+    from consensus_specs_tpu_torch.gen import consumer, gen_runner
+    from consensus_specs_tpu_torch.gen.runners import ssz_static
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.specs import get_spec
+    from consensus_specs_tpu_torch.ssz import hashing
+
+    seed, preset, mode, chaos, count = next(
+        s for s in ssz_static.settings() if s[1] == "mainnet")
+    want = count * sum(len(ssz_static.get_spec_ssz_types(get_spec(f, preset, device)))
+                       for f in forks)
+    out = {"forks": list(forks), "cases": want}
+    with tempfile.TemporaryDirectory() as tree:
+        hashing.set_backend("torch", device=device)
+        try:
+            sha256.reset_counts()
+            t0 = time.perf_counter()
+            generated = gen_runner.sum_counts(_quiet(
+                gen_runner.run_generator, "ssz_static",
+                [ssz_static.create_provider(fork, preset, seed, mode, chaos, count)],
+                argv=["-o", tree], device=device) for fork in forks)
+            _sync(device)
+            out["gen_s"] = time.perf_counter() - t0
+            out["gen_k1"] = _k1_count()
+            if (generated["generated"], generated["skipped"],
+                    generated["failed"]) != (want, 0, 0):
+                raise AssertionError(f"ssz_static generation: {generated}, "
+                                     f"not {want} cases generated")
+            sha256.reset_counts()
+            t0 = time.perf_counter()
+            replay = consumer.consume_tree(tree, preset=preset,
+                                           runners={"ssz_static"}, device=device)
+            _sync(device)
+            out["replay_s"] = time.perf_counter() - t0
+            out["replay_k1"] = _k1_count()
+        finally:
+            hashing.set_backend("hashlib")
+        sha256.reset_counts()
+        t0 = time.perf_counter()
+        host = consumer.consume_tree(tree, preset=preset, runners={"ssz_static"},
+                                     device=device)
+        out["hashlib_replay_s"] = time.perf_counter() - t0
+        out["hashlib_replay_k1"] = _k1_count()
+        out["tree_bytes"] = sum(p.stat().st_size for p in Path(tree).rglob("*")
+                                if p.is_file())
+    print(f"ssz_static at the mainnet setting ({mode.to_name()}, {count} cases a "
+          f"type, seed {seed}) for {', '.join(forks)}: {want} cases, "
+          f"{out['tree_bytes']} bytes; generated under the torch hasher in "
+          f"{out['gen_s']:.3f} s, K1 launches {out['gen_k1']}; replayed under "
+          f"it in {out['replay_s']:.3f} s ({replay['pass']} passed, "
+          f"{replay['skip']} skipped), K1 launches {out['replay_k1']}; under "
+          f"hashlib in {out['hashlib_replay_s']:.3f} s ({host['pass']} passed, "
+          f"{host['skip']} skipped), K1 launches {out['hashlib_replay_k1']}",
+          flush=True)
+    for label, stats in (("torch", replay), ("hashlib", host)):
+        if (stats["pass"], stats["skip"]) != (want, 0):
+            raise AssertionError(f"the {label} replay: {stats}, not {want} passed")
+    if _on_card(device) and (out["gen_k1"] <= 0 or out["replay_k1"] <= 0):
+        raise AssertionError("ssz_static generation or replay launched K1 no time")
+    if out["hashlib_replay_k1"] != 0:
+        raise AssertionError("the hashlib replay launched K1")
+    return out
+
+
+def phase_vectors_bls(device: str = "cuda") -> dict:
+    """9b: the bls runner's cases, generated (native BLS, as the runner's
+    ``use_fastest`` picks), then replayed by the consumer under the
+    ``"torch"`` backend with its pairing checks on ``device``: every
+    verdict and output the vector's, and K3, K4 and K5 launched."""
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.gen import consumer
+    from consensus_specs_tpu_torch.gen.runners import bls as bls_runner
+    from consensus_specs_tpu_torch.ops import bls as device_bls
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tree:
+        t0 = time.perf_counter()
+        generated = _quiet(bls_runner.main, argv=["-o", tree], device=device)
+        out["gen_s"] = time.perf_counter() - t0
+        if (generated["generated"], generated["skipped"],
+                generated["failed"]) != (VECTOR_BLS_CASES, 0, 0):
+            raise AssertionError(f"bls generation: {generated}, not "
+                                 f"{VECTOR_BLS_CASES} cases generated")
+        handlers = {p.name: sum(1 for _ in p.glob("bls/*"))
+                    for p in sorted(Path(tree).glob("general/*/bls/*"))}
+        previous_backend = bls.backend_name()
+        previous_device = device_bls.set_device(device)
+        try:
+            bls.use_backend("torch")
+            _reset_bls_counts()
+            t0 = time.perf_counter()
+            stats = consumer.consume_tree(tree, runners={"bls"}, device=device)
+            _sync(device)
+            out["replay_s"] = time.perf_counter() - t0
+            out["launches"] = _bls_counts()
+        finally:
+            bls.use_backend(previous_backend)
+            device_bls.set_device(previous_device)
+    print(f"bls vectors: {generated['generated']} cases ({handlers}) generated "
+          f"in {out['gen_s']:.3f} s; replayed under the torch backend on "
+          f"{device} in {out['replay_s']:.3f} s: {stats['pass']} passed, "
+          f"{stats['skip']} skipped, every verdict the vector's; launches "
+          f"{out['launches']}", flush=True)
+    if (stats["pass"], stats["skip"]) != (VECTOR_BLS_CASES, 0):
+        raise AssertionError(f"the bls replay: {stats}")
+    if _on_card(device) and min(out["launches"].values()) <= 0:
+        raise AssertionError(f"the bls replay left a kernel unlaunched: "
+                             f"{out['launches']}")
+    return out
+
+
+def tier1_handler_files(files_by_fork: dict) -> dict:
+    """A runner's handler map cut to the case files of
+    ``reference_cases.TIER1``, handlers left with none dropped."""
+    from consensus_specs_tpu_torch.testing import reference_cases
+
+    out = {}
+    for fork, handlers in files_by_fork.items():
+        kept = {}
+        for handler, files in handlers.items():
+            files = [f for f in ([files] if isinstance(files, str) else files)
+                     if f.startswith(reference_cases.TIER1)]
+            if files:
+                kept[handler] = files
+        if kept:
+            out[fork] = kept
+    return out
+
+
+def _tree_bytes(root: Path) -> dict:
+    return {p.relative_to(root).as_posix(): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def phase_vectors_state(device: str = "cuda") -> dict:
+    """9c: the state runners' handlers whose case files are in ``TIER1``,
+    generated at the minimal preset on ``device``-built specs (native BLS,
+    hashlib) and again on CPU-built ones: the two trees byte-identical,
+    file for file; then the consumer replays the card's tree on
+    ``device``-built specs, every case passing and none skipped."""
+    from consensus_specs_tpu_torch.gen import consumer, gen_runner
+    from consensus_specs_tpu_torch.gen.gen_from_tests import run_state_test_generators
+
+    selected = {
+        runner: tier1_handler_files(importlib.import_module(
+            f"consensus_specs_tpu_torch.gen.runners.{runner}").handler_files())
+        for runner in VECTOR_STATE_RUNNERS}
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        trees = {}
+        for leg, name in ((device, "card"), ("cpu", "host")):
+            trees[name] = Path(root) / name
+            trees[name].mkdir()
+            t0 = time.perf_counter()
+            counts = gen_runner.sum_counts(_quiet(
+                run_state_test_generators, runner, files, presets=("minimal",),
+                argv=["-o", str(trees[name])], device=leg)
+                for runner, files in selected.items())
+            _sync(leg)
+            out[name] = {"counts": counts, "seconds": time.perf_counter() - t0}
+            if counts["failed"]:
+                raise AssertionError(f"{counts['failed']} state cases failed to "
+                                     f"generate on {leg}")
+        card, host = (_tree_bytes(trees[name]) for name in ("card", "host"))
+        if card.keys() != host.keys():
+            raise AssertionError(f"the trees differ in their files: "
+                                 f"{sorted(card.keys() ^ host.keys())[:10]}")
+        differ = [name for name in card if card[name] != host[name]]
+        if differ:
+            raise AssertionError(f"{len(differ)} files differ between the card's "
+                                 f"tree and the CPU's: {differ[:10]}")
+        t0 = time.perf_counter()
+        stats = consumer.consume_tree(trees["card"], preset="minimal",
+                                      runners=set(selected), device=device)
+        _sync(device)
+        out["replay_s"] = time.perf_counter() - t0
+    generated = out["card"]["counts"]
+    print(f"state vectors ({', '.join(VECTOR_STATE_RUNNERS)}; handlers of the "
+          f"tier-1 case files): {generated['generated']} cases "
+          f"({generated['skipped']} skipped by their case files) generated on "
+          f"{device}-built specs in {out['card']['seconds']:.3f} s and on "
+          f"cpu-built ones in {out['host']['seconds']:.3f} s; the trees are "
+          f"byte-identical ({len(card)} files, {sum(map(len, card.values()))} "
+          f"bytes); replayed on {device}-built specs in {out['replay_s']:.3f} s: "
+          f"{stats['pass']} passed, {stats['skip']} skipped", flush=True)
+    if out["card"]["counts"] != out["host"]["counts"]:
+        raise AssertionError(f"the legs' counts differ: {out['card']['counts']} "
+                             f"and {out['host']['counts']}")
+    if (stats["pass"], stats["skip"]) != (generated["generated"], 0):
+        raise AssertionError(f"the state replay: {stats}, not "
+                             f"{generated['generated']} passed")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2237,6 +2495,12 @@ def main(argv=None) -> int:
         bls_batches = phase_bls_batches(args.seed)
     with _phase("8c always-BLS spec cases under the torch backend"):
         bls_cases = phase_bls_spec_cases()
+    with _phase("9a ssz_static vectors at the mainnet setting"):
+        vectors_ssz = phase_vectors_ssz_static()
+    with _phase("9b bls vectors under the torch backend"):
+        vectors_bls = phase_vectors_bls()
+    with _phase("9c state vectors on CUDA-built and CPU-built specs"):
+        phase_vectors_state()
 
     k1_entry = {
         "name": "sha256_block64",
@@ -2259,6 +2523,10 @@ def main(argv=None) -> int:
         "per_level_route_ms": ssz["per_level_route_ms"],
         "per_level_route_launches": ssz["per_level_route_launches"],
         "dense_2e20_ms": k1["dense_2e20_ms"],
+        # phase 9a: ssz_static at the mainnet setting, generated and then
+        # replayed under the "torch" hasher
+        "launches_vector_gen": vectors_ssz["gen_k1"],
+        "launches_vector_replay": vectors_ssz["replay_k1"],
     }
     k2_entry = {
         "name": "u64_list_root",
@@ -2306,6 +2574,8 @@ def main(argv=None) -> int:
             "launches_config2": bls_batches[BLS_CONFIGS[0][0]]["launches"][label],
             "launches_mixed_batch": bls_batches["mixed"]["launches"][label],
             "launches_spec_cases": bls_cases["torch"]["launches"][label],
+            # phase 9b: the bls vectors replayed under the "torch" backend
+            "launches_vector_replay": vectors_bls["launches"][label],
             "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["ms"],
             "plain_ms": numbers["plain_ms"],

@@ -73,6 +73,17 @@ def use_torch() -> None:
     use_backend("torch")
 
 
+def use_fastest() -> None:
+    """Prefer the native C++ backend, falling back to the Python oracle
+    (mirrors the reference's bls_active default of the fastest available
+    backend for CI; eth2spec/utils/bls.py:8-30).  It never selects the
+    device backend: the vector generators sign and verify on the host."""
+    try:
+        use_backend("native")
+    except ImportError:
+        use_backend("python")
+
+
 def backend_name() -> str:
     return _backend_name
 

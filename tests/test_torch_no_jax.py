@@ -1,14 +1,19 @@
 """The torch port stands alone: no JAX and nothing of the reference package.
 
-* a subprocess with ``jax`` blocked and an import blocker for
-  ``consensus_specs_tpu`` imports every module of the port and builds the
+* a subprocess with ``jax`` and ``yaml`` blocked and an import blocker for
+  ``consensus_specs_tpu`` imports every module of the port (the vector
+  layer's ``gen``, every ``gen.runners`` main, ``gen.consumer``,
+  ``gen.vector_yaml``, ``debug`` and ``config.config_util`` among them),
+  writes and replays the ``bls`` and ``ssz_generic`` vectors and reads a
+  config file without PyYAML, and builds the
   minimal phase0, altair, bellatrix and capella specs on the CPU (a
   subprocess, because the test session itself imports jax); through the
   port's ``testing/`` it then loads one of the reference's spec case
   files and runs its config-override case on a CPU-built spec, the
   device BLS backend (``ops/bls``) decides one batch on the CPU, and the
   ``"torch"`` hashing backend hashes one tree through its wave route;
-* a static scan of the port's sources finds no such import;
+* a static scan of the port's sources finds no such import, nor one of
+  ``yaml``, and covers the vector layer's files;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
 """
@@ -29,6 +34,7 @@ _BLOCKED_IMPORT_SCRIPT = r"""
 import importlib, pkgutil, sys
 
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["yaml"] = None  # the port reads and writes YAML without PyYAML
 
 
 class _BlockReference:
@@ -45,6 +51,15 @@ import consensus_specs_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+VECTOR_LAYER = ["gen", "gen.consumer", "gen.vector_yaml", "gen.gen_runner",
+                "gen.gen_from_tests", "gen.snappy", "debug", "debug.encode",
+                "debug.decode", "debug.random_value", "config.config_util"] + [
+    "gen.runners." + r for r in (
+        "bls", "epoch_processing", "finality", "fork_choice", "forks",
+        "genesis", "merkle", "operations", "random", "rewards", "sanity",
+        "shuffling", "ssz_generic", "ssz_static", "transition")]
+missing = [m for m in VECTOR_LAYER if "consensus_specs_tpu_torch." + m not in names]
+assert missing == [], missing
 
 from consensus_specs_tpu_torch.specs import get_spec
 
@@ -89,10 +104,30 @@ try:
     assert bytes(List[uint64, 1024](*range(200)).hash_tree_root()) == want
 finally:
     hashing.set_backend("hashlib")
+# the vector layer without PyYAML: generate and replay two runners' trees
+# on the CPU, and read a config file
+import tempfile
+from pathlib import Path
+from consensus_specs_tpu_torch.config import config_util
+from consensus_specs_tpu_torch.gen import consumer
+from consensus_specs_tpu_torch.gen.runners import bls as bls_runner, ssz_generic
+from consensus_specs_tpu_torch.crypto import bls
+bls.use_native()
+with tempfile.TemporaryDirectory() as tree:
+    assert bls_runner.main(argv=["-o", tree, "-d", "cpu"])["generated"] == 33
+    assert ssz_generic.main(argv=["-o", tree, "-d", "cpu"])["failed"] == 0
+    stats = consumer.consume_tree(tree, device="cpu")
+    assert stats["pass"] > 600 and stats["skip"] == 0, stats
+    config = Path(tree) / "config.yaml"
+    config.write_text("PRESET_BASE: 'minimal'\nGENESIS_FORK_VERSION: 0x00000001\n")
+    assert config_util.load_config_file(config) == {
+        "PRESET_BASE": "minimal", "GENESIS_FORK_VERSION": b"\x00\x00\x00\x01"}
+context.is_pytest = True
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "consensus_specs_tpu" or m.startswith("consensus_specs_tpu."))
 assert leaked == ["jax"], leaked  # only the blocking None entry
+assert sys.modules["yaml"] is None
 print("imported", len(names), "modules")
 """
 
@@ -147,6 +182,20 @@ def test_static_scan_finds_no_jax_or_reference_import():
     assert len(sources) > 20
     offenders = [(str(p.relative_to(ROOT)), name)
                  for p in sources for name in _imports(p) if _is_forbidden(name)]
+    assert offenders == []
+
+
+def test_static_scan_finds_no_yaml_import_and_covers_the_vector_layer():
+    port = ROOT / PORT
+    sources = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    vector_layer = [port / "gen" / "consumer.py", port / "gen" / "vector_yaml.py",
+                    port / "gen" / "gen_runner.py", port / "debug" / "__init__.py",
+                    port / "config" / "config_util.py"] + sorted(
+        (port / "gen" / "runners").glob("*.py"))
+    assert len(vector_layer) == 5 + 16 and set(vector_layer) <= set(sources)
+    offenders = [(str(p.relative_to(ROOT)), name) for p in sources
+                 for name in _imports(p)
+                 if name == "yaml" or name.startswith("yaml.")]
     assert offenders == []
 
 
