@@ -53,7 +53,8 @@ seconds:
    first kernel's start to its last one's end, and the schedule with no
    tail, every wave a grid launch) beside its bound and the per-level
    route's K1 launches summed (each launch's input timed again, as
-   before); and the wall time of each route's ``hash_tree_root``, in turns.
+   before); and the wall time of each route's ``hash_tree_root``, once
+   each (hashlib, per-level, wave).
 5. the altair main path: one mainnet-preset altair epoch at 400,000
    validators with BLS on — real pubkeys and sync committees, 32 signed
    blocks, each with the two preceding slots' aggregates and a sync
@@ -131,8 +132,9 @@ seconds:
 
 9a. test vectors: the ssz_static runner at its mainnet setting
    (``mode_random``, 5 cases a type; whole mainnet ``BeaconState``s among
-   them) for ``VECTOR_SSZ_FORKS`` (phase0 and capella: the four forks
-   took 263.9 s, over the phase's 240 s), generated under the ``"torch"`` SSZ
+   them) for ``VECTOR_SSZ_FORKS`` (phase0 alone: the four forks took
+   263.9 s, over the phase's 240 s, and phase 10's time took capella's
+   share too), generated under the ``"torch"`` SSZ
    hasher on CUDA-built specs (K1: the wave route for the big trees, a wave
    at a time for the small ones), then replayed by the consumer under the
    same hasher and under hashlib; every case generated and passing both
@@ -145,6 +147,29 @@ seconds:
    CUDA-built specs (native BLS, hashlib) and again on CPU-built ones: the
    two trees byte-identical, file for file; the consumer replays the
    card's tree on CUDA-built specs, every case passing, none skipped.
+10a. fork-choice ingest, the reference bench's ``forkchoice_batch_ingest``
+   row: a mainnet-preset phase0 state of 400,000 validators (the bench's
+   ``build_state``) at genesis, two competing children of its anchor and
+   100,000 single-attester attestations over the epoch's committees, BLS
+   off; the port's ``ForkChoiceEngine.on_attestations`` and the spec's
+   ``on_attestation`` loop on a second store must give the same head and
+   the same latest messages; both ingest times and both ``get_head``
+   times; ``segment_sum``'s backend in use, and its ``"torch"`` branch on
+   the card against numpy on the engine's vote rows.
+10b. the node's serving path, the bench's ``node_firehose`` and
+   ``node_query_load`` rows cut to 2 epochs: the firehose corpus (64 full
+   blocks, 100,000 gossip votes) built cold on a CUDA-built spec, served by
+   ``query.harness.run_query_load`` (a chain driver, 3 gossip producers,
+   2 query readers, a 64-item queue, an asynchronous ``CheckpointStore``
+   of 3 in a temporary directory); every block through the engine-backed
+   ``on_block`` on the fast path, no batch rejected, no reader error, every
+   query cache within its cap; K2 launched by the fused update at each
+   epoch boundary, K1 not at all; GC pauses.
+10c. ``recover_node`` from the checkpoint store and the journal (the fast
+   path engages; head, state root, checkpoints and votes equal); the
+   journal replayed literally on a CPU-built spec, its head root and head
+   state root equal to the card's; validator and balance proofs served off
+   the newest artifact verify with ``is_valid_merkle_branch``.
 
 The CPU legs take the boundary block's pre-state by its backing tree (no
 serialize round trip) and hash on the host (a CPU spec keeps the host
@@ -166,6 +191,7 @@ import hashlib
 import importlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1135,13 +1161,12 @@ def phase_ssz_hasher(spec, post, device: str = "cuda") -> dict:
         return {"seconds": seconds, "launches": sha256.counts["sha256_block64"],
                 "gc": pauses}
 
-    # in turns: per-level, wave, wave, per-level; the first of each recorded
+    # once each (the second turn of per-level and wave, 30-40 s of host
+    # hashing, went to phase 10's time), both recorded
     runs = [("hashlib", timed_root("hashlib", False)),
             ("per-level", timed_root("per-level", True)),
-            ("wave", timed_root("wave", True)),
-            ("wave", timed_root("wave", False)),
-            ("per-level", timed_root("per-level", False))]
-    print("hash_tree_root of the fresh post-state, wall, in turns: " + "; ".join(
+            ("wave", timed_root("wave", True))]
+    print("hash_tree_root of the fresh post-state, wall: " + "; ".join(
         f"{route} {run['seconds']:.3f} s ({run['launches']} K1 launches, "
         f"{run['gc']})" for route, run in runs)
         + f"; root {main_root.hex()} for every route", flush=True)
@@ -2213,8 +2238,9 @@ def phase_bls_spec_cases(device: str = "cuda") -> dict:
 
 # 9a: the ssz_static runner's mainnet setting for these forks.  All four
 # (705 cases) took 263.9 s on an H100's host, over the phase's 240 s
-# budget, so it keeps the first fork and the last (340 cases)
-VECTOR_SSZ_FORKS = ("phase0", "capella")
+# budget; phase0 and capella (340 cases) took 120.0 s, and phase 10's
+# serving path needs that time, so it keeps phase0 (135 cases)
+VECTOR_SSZ_FORKS = ("phase0",)
 # 9b: the bls runner's cases, the reference's
 VECTOR_BLS_CASES = 33
 # 9c: the state runners with handlers whose case files are in TIER1
@@ -2445,6 +2471,398 @@ def phase_vectors_state(device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+# the reference bench's serving rows (forkchoice_batch_ingest,
+# node_firehose, node_query_load), cut to 2 epochs
+NODE_EPOCHS = 2
+NODE_GOSSIP = 100_000
+NODE_PRODUCERS = 3
+NODE_READERS = 2
+NODE_QUEUE_CAP = 64
+NODE_CKPT_CAP = 3
+PROOF_VALIDATORS = (0, 1, 199_999, 399_999)
+
+
+@contextlib.contextmanager
+def bls_off():
+    """Signature checks off, as in the reference's serving rows (they
+    measure orchestration, not pairing), restored after."""
+    from consensus_specs_tpu_torch.crypto import bls
+
+    was = bls.bls_active
+    bls.bls_active = False
+    try:
+        yield
+    finally:
+        bls.bls_active = was
+
+
+def forkchoice_ingest_inputs(spec, state, n_attestations: int):
+    """The reference bench's fork-choice ingest corpus
+    (``build_forkchoice_ingest_inputs``) on the port: a literal spec store
+    and a ``ForkChoiceEngine`` primed alike (the anchor at genesis, two
+    competing children of it, the clock one epoch on), and at least
+    ``n_attestations`` single-attester attestations over the epoch's
+    committees, split between the children.  Returns ``(store, engine,
+    attestations)``."""
+    from consensus_specs_tpu_torch.forkchoice import ForkChoiceEngine
+    from consensus_specs_tpu_torch.testing.helpers.fork_choice import (
+        _slot_wall_time,
+    )
+
+    state.slot = spec.GENESIS_SLOT
+    state.latest_block_header = spec.BeaconBlockHeader(
+        body_root=spec.hash_tree_root(spec.BeaconBlockBody()))
+    anchor = spec.BeaconBlock(state_root=state.hash_tree_root())
+    store = spec.get_forkchoice_store(state, anchor)
+    engine = ForkChoiceEngine(spec, spec.get_forkchoice_store(state, anchor))
+    anchor_root = anchor.hash_tree_root()
+    epoch = int(spec.get_current_epoch(state))
+    first_slot = int(spec.compute_start_slot_at_epoch(epoch))
+
+    def child(graffiti):
+        st = state.copy()
+        spec.process_slots(st, first_slot + 1)
+        block = spec.BeaconBlock(
+            slot=first_slot + 1,
+            proposer_index=spec.get_beacon_proposer_index(st),
+            parent_root=anchor_root)
+        block.body.graffiti = graffiti
+        spec.process_block(st, block)
+        block.state_root = st.hash_tree_root()
+        return spec.SignedBeaconBlock(message=block)
+
+    forks = [child(b"\x00" * 32), child(b"\xff" * 32)]
+    t = _slot_wall_time(spec, state, first_slot + 1)
+    spec.on_tick(store, t)
+    engine.on_tick(t)
+    for signed in forks:
+        spec.on_block(store, signed)
+        engine.on_block(signed)
+    roots = [signed.message.hash_tree_root() for signed in forks]
+    t = _slot_wall_time(spec, state, first_slot + int(spec.SLOTS_PER_EPOCH))
+    spec.on_tick(store, t)
+    engine.on_tick(t)
+    target = spec.Checkpoint(epoch=epoch, root=anchor_root)
+    atts = []
+    per_slot = int(spec.get_committee_count_per_slot(state, epoch))
+    for slot in range(first_slot, first_slot + int(spec.SLOTS_PER_EPOCH)):
+        for index in range(per_slot):
+            committee = spec.get_beacon_committee(state, slot, index)
+            vote = anchor_root if slot <= first_slot + 1 else \
+                roots[len(atts) % 2]
+            data = spec.AttestationData(
+                slot=slot, index=index, beacon_block_root=vote,
+                source=state.current_justified_checkpoint, target=target)
+            for member in range(len(committee)):
+                bits = [False] * len(committee)
+                bits[member] = True
+                atts.append(spec.Attestation(aggregation_bits=bits, data=data))
+            if len(atts) >= n_attestations:
+                return store, engine, atts
+    return store, engine, atts
+
+
+def _timed(fn, *args, device=None):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if device is not None:
+        _sync(device)
+    return time.perf_counter() - t0, out
+
+
+def phase_forkchoice_ingest(n_validators: int, n_attestations: int = NODE_GOSSIP,
+                            device: str = "cuda") -> dict:
+    """10a: the reference bench's ``forkchoice_batch_ingest`` row on a
+    ``device``-built spec: the attestations through the port's batched
+    ``ForkChoiceEngine.on_attestations`` and through the spec's
+    ``on_attestation`` loop on a second store; the heads and the latest
+    messages must be equal.  Then the ``"torch"`` branch of
+    ``segment_sum`` on ``device`` against the numpy branch on the
+    engine's standing vote rows (the proto-array's weight rebuild)."""
+    from consensus_specs_tpu_torch import scenario
+    from consensus_specs_tpu_torch.forkchoice import engine as fc_engine
+    from consensus_specs_tpu_torch.node import firehose
+    from consensus_specs_tpu_torch.ops import segment
+    from consensus_specs_tpu_torch.specs import get_spec
+
+    spec = get_spec("phase0", "mainnet", device=device)
+    with bls_off():
+        t_state, state = _timed(scenario.build_state, spec, n_validators)
+        t_inputs, (store, engine, atts) = _timed(
+            forkchoice_ingest_inputs, spec, state, n_attestations)
+        print(f"fork-choice ingest set-up: state {t_state:.3f} s, two "
+              f"children and {len(atts)} single-attester attestations "
+              f"{t_inputs:.3f} s; segment_sum backend in use: "
+              f"{segment.backend_in_use()}", flush=True)
+        fc_engine.reset_stats()
+
+        def spec_loop():
+            for att in atts:
+                spec.on_attestation(store, att)
+
+        with GcPauses() as pauses:
+            t_batch, _ = _timed(engine.on_attestations, atts)
+            t_loop, _ = _timed(spec_loop)
+            t_head_engine, head = _timed(engine.get_head)
+            t_head_spec, head_spec = _timed(spec.get_head, store)
+    messages = firehose.latest_votes(engine.store)
+    print(f"fork-choice ingest: engine.on_attestations {t_batch:.3f} s "
+          f"({len(atts) / t_batch:.1f} attestations/s), spec on_attestation "
+          f"loop {t_loop:.3f} s ({t_loop / t_batch:.1f}x); get_head engine "
+          f"{t_head_engine * 1e3:.3f} ms, spec {t_head_spec:.3f} s; head "
+          f"{bytes(head).hex()}; latest messages {len(messages)}; {pauses}",
+          flush=True)
+    if bytes(head) != bytes(head_spec):
+        raise AssertionError("the engine's head differs from the spec's")
+    if messages != firehose.latest_votes(store):
+        raise AssertionError("the batched latest messages differ from the "
+                             "spec loop's fold")
+    if len(messages) != len(atts):
+        raise AssertionError(f"{len(messages)} latest messages for "
+                             f"{len(atts)} single-attester attestations")
+
+    proto = engine.proto
+    voted = proto.vote_node >= 0
+    values, ids, n_nodes = proto.balances[voted], proto.vote_node[voted], len(proto)
+    t_host, host = _timed(segment.segment_sum, values, ids, n_nodes, "numpy")
+    segment.segment_sum(values, ids, n_nodes, "torch", device)  # warm-up
+    t_dev, dev = _timed(segment.segment_sum, values, ids, n_nodes, "torch",
+                        device, device=device)
+    print(f"segment_sum on {len(values)} vote rows into {n_nodes} nodes: "
+          f"numpy {t_host * 1e3:.3f} ms, torch on {device} {t_dev * 1e3:.3f} ms "
+          f"(upload, index_add_, download); node weights {host.tolist()}",
+          flush=True)
+    if not np.array_equal(host, dev):
+        raise AssertionError("segment_sum's torch branch differs from numpy's")
+    return {"batch_s": t_batch, "loop_s": t_loop, "attestations": len(atts),
+            "head": bytes(head)}
+
+
+def phase_node_firehose(n_validators: int, gossip: int = NODE_GOSSIP,
+                        device: str = "cuda") -> dict:
+    """10b: the node's serving path on a ``device``-built spec: the
+    reference bench's firehose corpus (``NODE_EPOCHS`` epochs of full
+    blocks, ``gossip`` single-attester votes), built cold, served by
+    ``query.harness.run_query_load`` (a chain driver, ``NODE_PRODUCERS``
+    gossip producers and ``NODE_READERS`` query readers over a
+    ``NODE_QUEUE_CAP`` queue, an asynchronous ``CheckpointStore`` of
+    ``NODE_CKPT_CAP`` in a temporary directory).  Every block fast, no
+    batch rejected, no reader error, every query cache within its cap; the
+    K2 launches and fused epoch updates of the run are read just after
+    it."""
+    from consensus_specs_tpu_torch import query, scenario, stf
+    from consensus_specs_tpu_torch.forkchoice import engine as fc_engine
+    from consensus_specs_tpu_torch.node import firehose
+    from consensus_specs_tpu_torch.node import service
+    from consensus_specs_tpu_torch.ops import merkle_resident, sha256
+    from consensus_specs_tpu_torch.persist import store as persist_store
+    from consensus_specs_tpu_torch.query import harness
+    from consensus_specs_tpu_torch.specs import get_spec
+
+    spec = get_spec("phase0", "mainnet", device=device)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    with bls_off():
+        t_state, state = _timed(scenario.build_state, spec, n_validators)
+        firehose.prepare_anchor(spec, state)
+        t_corpus, corpus = _timed(firehose.build_corpus, spec, state,
+                                  NODE_EPOCHS, gossip, device=device)
+        n_gossip = sum(len(v) for v in corpus.gossip.values())
+        print(f"firehose set-up: state {t_state:.3f} s; corpus built cold in "
+              f"{t_corpus:.3f} s: {len(corpus.chain)} blocks, {n_gossip} "
+              "gossip attestations", flush=True)
+        store = persist_store.CheckpointStore(directory, cap=NODE_CKPT_CAP)
+        for reset in (service.reset_stats, stf.reset_stats,
+                      fc_engine.reset_stats, persist_store.reset_stats,
+                      query.reset_stats):
+            reset()
+        merkle_resident.stats["fused_epoch_updates"] = 0
+        sha256.reset_counts()
+        _sync(device)
+        with GcPauses() as pauses:
+            run = harness.run_query_load(
+                spec, state, corpus, n_query_threads=NODE_READERS,
+                n_gossip_producers=NODE_PRODUCERS, queue_cap=NODE_QUEUE_CAP,
+                checkpoint_store=store)
+            _sync(device)
+        k2 = sha256.counts["u64_list_root"]
+        k1 = sha256.counts["sha256_block64"]
+        fused = merkle_resident.stats["fused_epoch_updates"]
+        if not store.flush(timeout=120.0):
+            raise AssertionError("the checkpoint writer stalled")
+    node, ql, queue, svc = (run["node"], run["query_load"], run["queue"],
+                            run["service"])
+    gauges = node.query_engine.cache_gauges()
+    print(f"firehose: {run['blocks']} blocks and {run['gossip_attestations']} "
+          f"gossip attestations in {run['elapsed_s']:.3f} s "
+          f"({run['blocks_per_s']} blocks/s, {run['atts_per_s']} "
+          f"attestations/s), {run['applied_items']} items applied by "
+          f"{run['producer_threads']} producer threads; fast blocks "
+          f"{stf.stats['fast_blocks']}, replayed {stf.stats['replayed_blocks']} "
+          f"{stf.stats['replay_reasons']}; rejected batches "
+          f"{svc['rejected_batches']}, batches applied {svc['batches_applied']}, "
+          f"runs coalesced {svc['runs_coalesced']}; queue depth max "
+          f"{queue['depth_max']}, blocked puts {queue['blocked_puts']} "
+          f"({queue['blocked_s']:.3f} s), enqueued {queue['enqueued']}; "
+          f"fork choice {fc_engine.stats['attestations_ingested']} attestations "
+          f"ingested, {fc_engine.stats['prunes']} prunes, "
+          f"{fc_engine.stats['justified_refreshes']} justified refreshes; "
+          f"{pauses}", flush=True)
+    print(f"firehose: K2 launches {k2}, K1 launches {k1}, fused epoch "
+          f"updates {fused}; checkpoints written "
+          f"{persist_store.stats['checkpoints_written']} "
+          f"({persist_store.stats['bytes_written']} bytes), write failures "
+          f"{persist_store.stats['write_failures']}; query readers "
+          f"{ql['threads']}: {ql['ops']} ops, {ql['served']} served, "
+          f"{ql['unserved']} unserved, {ql['errors']} errors, p50 "
+          f"{ql['p50_ms']} ms, p99 {ql['p99_ms']} ms; caches {gauges}",
+          flush=True)
+    n_blocks = NODE_EPOCHS * int(spec.SLOTS_PER_EPOCH)
+    if run["blocks"] != n_blocks or stf.stats["fast_blocks"] != n_blocks \
+            or stf.stats["replayed_blocks"] != 0:
+        raise AssertionError(f"not every block fast: {stf.stats}")
+    if svc["rejected_batches"] != 0:
+        raise AssertionError(f"{svc['rejected_batches']} batches rejected")
+    if run["gossip_attestations"] < gossip:
+        raise AssertionError(f"{run['gossip_attestations']} gossip votes")
+    if ql["errors"] != 0 or ql["served"] == 0:
+        raise AssertionError(f"query readers: {ql}")
+    for name in ("artifact_index", "proof_cache", "resident"):
+        if gauges[f"{name}_size"] > gauges[f"{name}_cap"]:
+            raise AssertionError(f"query cache {name} over its cap: {gauges}")
+    if persist_store.stats["write_failures"] != 0 \
+            or persist_store.stats["checkpoints_written"] == 0:
+        raise AssertionError(f"checkpoint store: {persist_store.stats}")
+    if _on_card(device) and (fused != NODE_EPOCHS or k2 == 0 or k1 != 0):
+        raise AssertionError(f"the node's epochs launched K2 {k2} times and K1 "
+                             f"{k1} times in {fused} fused updates")
+    return {"spec": spec, "state": state, "corpus": corpus, "node": node,
+            "store": store, "directory": directory, "k2_launches": k2}
+
+
+def _proved(spec, leaf, branch, gindex, root) -> bool:
+    depth = int(gindex).bit_length() - 1
+    return bool(spec.is_valid_merkle_branch(
+        spec.Bytes32(leaf), [spec.Bytes32(b) for b in branch], depth,
+        int(gindex) - (1 << depth), spec.Root(root)))
+
+
+def phase_node_recovery(served: dict) -> dict:
+    """10c: ``recover_node`` from the checkpoint store and the journal
+    (the fast path must engage, with no corruption) gives the served
+    node's head, head state root, checkpoints and votes; then the journal
+    replayed literally (``replay_journal_literal``) on a CPU-built spec,
+    its anchor and payloads taken as views of the same host-hashed trees,
+    gives the card's head and
+    head state root (``assert_parity``); and Merkle proofs served by the
+    ``QueryEngine`` off the newest artifact verify against its head state
+    root with the spec's ``is_valid_merkle_branch``."""
+    from consensus_specs_tpu_torch.node import firehose, service
+    from consensus_specs_tpu_torch.persist import store as persist_store
+    from consensus_specs_tpu_torch.query import streamproof
+    from consensus_specs_tpu_torch.specs import get_spec
+    from consensus_specs_tpu_torch.ssz.gindex import get_generalized_index
+
+    spec, state, corpus, node, store = (served[k] for k in (
+        "spec", "state", "corpus", "node", "store"))
+    head = bytes(node.get_head())
+    head_state_root = bytes(node.store.block_states[head].hash_tree_root())
+    with bls_off():
+        service.reset_stats()
+        persist_store.reset_stats()
+        t_recover, recovered = _timed(
+            lambda: service.recover_node(spec, state, corpus.anchor_block,
+                                         node.journal, checkpoint_store=store))
+        newest = max(m["journal_pos"] for m in store.entries().values())
+        print(f"recovery: {t_recover:.3f} s from the checkpoint at journal "
+              f"position {newest} of {len(node.journal)}; checkpoint "
+              f"recoveries {service.stats['checkpoint_recoveries']}, "
+              f"corruptions {persist_store.stats['corruptions']}, fallbacks "
+              f"{persist_store.stats['restore_fallbacks']}", flush=True)
+        if service.stats["checkpoint_recoveries"] != 1 \
+                or persist_store.stats["corruptions"] != 0 \
+                or persist_store.stats["restore_fallbacks"] != 0:
+            raise AssertionError("the checkpoint fast path did not engage")
+        if bytes(recovered.get_head()) != head or bytes(
+                recovered.store.block_states[head].hash_tree_root()) \
+                != head_state_root:
+            raise AssertionError("the recovered head differs")
+        for name in ("justified_checkpoint", "finalized_checkpoint"):
+            if getattr(recovered.store, name) != getattr(node.store, name):
+                raise AssertionError(f"the recovered {name} differs")
+        if firehose.latest_votes(recovered.store) != \
+                firehose.latest_votes(node.store):
+            raise AssertionError("the recovered latest messages differ")
+
+        # the CPU leg's anchor and payloads are views of the same trees, as
+        # the earlier phases' CPU legs take their pre-states: every root in
+        # them was hashed on the host (the node hashes with hashlib; its
+        # anchor was hashed before any kernel ran), and the replay hashes
+        # each post-state itself (decoding 100,000 attestations instead
+        # took 36.8 s on the card's host)
+        cpu_spec = get_spec("phase0", "mainnet", device="cpu")
+        t0 = time.perf_counter()
+        cpu_state = cpu_leg_state(cpu_spec, state)
+        cpu_anchor = cpu_spec.BeaconBlock.view_from_backing(
+            corpus.anchor_block.get_backing())
+        journal = []
+        for kind, payload in node.journal:
+            if kind == "block":
+                payload = cpu_spec.SignedBeaconBlock.view_from_backing(
+                    payload.get_backing())
+            elif kind == "attestations":
+                payload = [cpu_spec.Attestation.view_from_backing(
+                    a.get_backing()) for a in payload]
+            journal.append((kind, payload))
+        t_decode = time.perf_counter() - t0
+        t_literal, ref = _timed(firehose.replay_journal_literal, cpu_spec,
+                                cpu_state, cpu_anchor, journal)
+        roots = firehose.assert_parity(cpu_spec, node, ref)
+    print(f"cpu leg: journal of {len(journal)} items taken in "
+          f"{t_decode:.3f} s, replayed literally on a cpu-built spec in "
+          f"{t_literal:.3f} s; head {roots['head_root']}, head state root "
+          f"{roots['head_state_root']} (the card's: 0x{head.hex()}, "
+          f"0x{head_state_root.hex()})", flush=True)
+
+    engine = node.query_engine
+    summary = engine.summary()
+    root = bytes.fromhex(summary["head_state_root"])
+    block_root = bytes.fromhex(summary["head_block_root"])
+    cpu_head_state = ref.block_states[block_root]
+    if bytes(cpu_head_state.hash_tree_root()) != root:
+        raise AssertionError("the newest artifact's state is not the cpu "
+                             "replay's")
+    n = len(state.validators)
+    proofs = 0
+    for i in (v for v in PROOF_VALIDATORS if v < n):
+        pr = engine.proof_of_validator(i)
+        if pr["state_root"] != root or not _proved(
+                cpu_spec, pr["leaf"], pr["branch"], pr["gindex"], root):
+            raise AssertionError(f"validator {i}'s proof does not verify")
+        if pr["leaf"] != bytes(cpu_head_state.validators[i].hash_tree_root()):
+            raise AssertionError(f"validator {i}'s proven leaf differs")
+        # the balance's chunk and its branch off the same mapped artifact
+        gindex = get_generalized_index(spec.BeaconState, "balances", i)
+        with engine._lock:
+            idx = engine._current()
+            leaf, branch = streamproof.proof_at(
+                idx.mapped.buf, idx.entries, idx.tops[root], gindex)
+        balance = int.from_bytes(leaf[(i % 4) * 8:(i % 4) * 8 + 8], "little")
+        if not _proved(cpu_spec, leaf, branch, gindex, root) \
+                or balance != engine.balance_of(i) \
+                or balance != int(cpu_head_state.balances[i]):
+            raise AssertionError(f"validator {i}'s balance proof fails")
+        proofs += 2
+    print(f"proofs: {proofs} served off the artifact at state root "
+          f"{root.hex()} (block {block_root.hex()}) verify with "
+          "is_valid_merkle_branch on a cpu-built spec", flush=True)
+    engine.reset()
+    store.close()
+    shutil.rmtree(served["directory"], ignore_errors=True)
+    return {"recover_s": t_recover, "literal_s": t_literal, **roots}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2501,6 +2919,14 @@ def main(argv=None) -> int:
         vectors_bls = phase_vectors_bls()
     with _phase("9c state vectors on CUDA-built and CPU-built specs"):
         phase_vectors_state()
+    with _phase(f"10a fork-choice ingest at {N_VALIDATORS} validators"):
+        phase_forkchoice_ingest(N_VALIDATORS)
+    with _phase(f"10b the node's firehose at {N_VALIDATORS} validators"):
+        served = phase_node_firehose(N_VALIDATORS)
+    with _phase("10c recovery, the CPU literal replay, proofs"):
+        phase_node_recovery(served)
+    k2_node = served["k2_launches"]
+    del served
 
     k1_entry = {
         "name": "sha256_block64",
@@ -2543,6 +2969,9 @@ def main(argv=None) -> int:
         "launches_bellatrix_engine": bellatrix_engine["k2_launches"],
         # the phase0 config-override epoch (phase 7b): its fused update
         "launches_config_override": override["phase0"]["k2_launches"],
+        # the node's firehose (phase 10b): the fused epoch updates of the
+        # blocks the node applied through the engine-backed on_block
+        "launches_node_firehose": k2_node,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -11,9 +11,12 @@
   port's ``testing/`` it then loads one of the reference's spec case
   files and runs its config-override case on a CPU-built spec, the
   device BLS backend (``ops/bls``) decides one batch on the CPU, and the
-  ``"torch"`` hashing backend hashes one tree through its wave route;
+  ``"torch"`` hashing backend hashes one tree through its wave route, and
+  the node's serving path (``forkchoice``, ``persist``, ``query``,
+  ``node``) serves a minimal firehose with a query reader and a
+  checkpoint store, equal to its literal replay;
 * a static scan of the port's sources finds no such import, nor one of
-  ``yaml``, and covers the vector layer's files;
+  ``yaml``, and covers the vector layer's files and the serving path's;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
 """
@@ -122,6 +125,34 @@ with tempfile.TemporaryDirectory() as tree:
     config.write_text("PRESET_BASE: 'minimal'\nGENESIS_FORK_VERSION: 0x00000001\n")
     assert config_util.load_config_file(config) == {
         "PRESET_BASE": "minimal", "GENESIS_FORK_VERSION": b"\x00\x00\x00\x01"}
+# the node's serving path: fork choice, the checkpoint store, the query
+# engine and the node service, a minimal firehose with query readers
+SERVING_LAYER = ["forkchoice", "forkchoice.proto_array", "forkchoice.batch",
+                 "forkchoice.engine", "persist", "persist.atomic",
+                 "persist.store", "query", "query.resident",
+                 "query.streamproof", "query.engine", "query.coldstart",
+                 "query.harness", "node", "node.ingest", "node.admission",
+                 "node.service", "node.firehose"]
+missing = [m for m in SERVING_LAYER if "consensus_specs_tpu_torch." + m not in names]
+assert missing == [], missing
+from consensus_specs_tpu_torch.node import firehose
+from consensus_specs_tpu_torch.persist.store import CheckpointStore
+from consensus_specs_tpu_torch.query import harness
+from consensus_specs_tpu_torch.testing.helpers.genesis import create_genesis_state
+bls.bls_active = False
+genesis = create_genesis_state(spec, context.default_balances(spec),
+                               context.default_activation_threshold(spec))
+corpus = firehose.build_corpus(spec, genesis, n_epochs=2, gossip_target=64)
+with tempfile.TemporaryDirectory() as ckpt:
+    store = CheckpointStore(ckpt)
+    run = harness.run_query_load(spec, genesis, corpus, n_query_threads=1,
+                                 checkpoint_store=store)
+    store.close()
+assert run["query_load"]["errors"] == 0
+literal = firehose.replay_journal_literal(spec, genesis, corpus.anchor_block,
+                                          run["node"].journal)
+firehose.assert_parity(spec, run["node"], literal)
+bls.bls_active = True
 context.is_pytest = True
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
@@ -197,6 +228,16 @@ def test_static_scan_finds_no_yaml_import_and_covers_the_vector_layer():
                  for name in _imports(p)
                  if name == "yaml" or name.startswith("yaml.")]
     assert offenders == []
+
+
+def test_static_scan_covers_the_serving_layer():
+    port = ROOT / PORT
+    serving = [f for d in ("forkchoice", "persist", "query", "node")
+               for f in sorted((port / d).glob("*.py"))]
+    assert len(serving) == 18
+    assert set(serving) <= set(port.rglob("*.py"))
+    assert [(str(p.relative_to(ROOT)), name) for p in serving
+            for name in _imports(p) if _is_forbidden(name)] == []
 
 
 def test_hashing_lazy_backends_name_only_the_port():

@@ -40,11 +40,18 @@ FORKS = ("phase0",)
 
 EXCLUDED = {
     "phase0/fork_choice/test_engine_bench.py":
-        "the reference's bench.py and fork choice engine (A10)",
+        "the reference's bench.py; its twin is chip_smoke.py phase 10a "
+        "(the bench's fork-choice ingest row at 400,000 validators)",
     "phase0/fork_choice/test_engine_differential.py":
-        "the fork choice engine, forkchoice/ (A10)",
+        "pytest-native (parametrized over its replay cases); its twins are "
+        "tests/test_torch_forkchoice_cases.py (the replays under the port's "
+        "engine_mode) and tests/test_torch_forkchoice.py (random DAGs, a "
+        "finalizing chain, the batched fold, a warm store, segment_sum)",
     "phase0/fork_choice/test_node_differential.py":
-        "the node, node/ (A11)",
+        "pytest-native (parametrized over its replay cases); its twins are "
+        "tests/test_torch_forkchoice_cases.py (the replays with a Node "
+        "mirror) and tests/test_torch_node.py (the firehose, the admission "
+        "gate's delivery orders, recovery)",
     "phase0/sanity/test_stf_engine_differential.py":
         "the reference's bench.py and tests/chaos corpus, run through the "
         "reference package",
