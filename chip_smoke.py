@@ -170,6 +170,30 @@ seconds:
    journal replayed literally on a CPU-built spec, its head root and head
    state root equal to the card's; validator and balance proofs served off
    the newest artifact verify with ``is_valid_merkle_branch``.
+11a. the KZG lane MSM and the Fr NTT, the JAX package's two remaining
+   single-device XLA programs: ``ops.kzg.msm`` at a mainnet blob's 4,096
+   lanes on ``crypto.kzg.setup_lagrange(4096)`` (seeded scalars with 0,
+   1, r - 1, (r + 1) / 2 among them, and two lanes that give one point, so
+   that the tail sum doubles), its 255 bit-planes' field products K3
+   launches (28 a bit-plane and 3; K3's first launch at each shape held
+   against the plain version), must equal the native fixed-base MSM byte
+   for byte; 64 lanes of ``batch_scalar_mul`` each the host's
+   ``p.mul(s)``; seconds of host marshalling, the device loop and the
+   host tail sum.  ``ops.fr.ntt_device`` forward and inverse at 4,096 and
+   2^14 must equal ``crypto.fr.fft``; B12's torch ``mul`` timed at 2^14
+   products.
+11b. an eip4844 block at full width: phase 6's bellatrix pre-state
+   (mainnet preset, 400,000 validators, seed 0) through
+   ``upgrade_to_eip4844`` on a CUDA-built spec, one signed block whose
+   payload carries a blob transaction for each of 16 seeded blobs of 4,096
+   field elements, applied with BLS on under the ``"torch"`` SSZ hasher
+   (K1), its root equal to a CPU-built spec's under hashlib; the blobs'
+   sidecar verifies; the block's 16 commitments equal ``ops.kzg``'s lane
+   sums, the 65,536 lanes in one ``batch_scalar_mul`` on the card.
+11c. every case of the research forks' case files (``custody_game/``,
+   ``sharding/``, ``experimental/``, whose file also runs eip4844 and das)
+   on CUDA-built minimal specs, their pytest fixtures supplied by the
+   loader: every case passes, and no CPU-built spec appears.
 
 The CPU legs take the boundary block's pre-state by its backing tree (no
 serialize round trip) and hash on the host (a CPU spec keeps the host
@@ -2059,14 +2083,43 @@ def device_breakdown(args):
     return {"total_ms": total, "call_s": walls[-1], **split}
 
 
+@contextlib.contextmanager
+def k3_first_launches():
+    """Keeps K3's first launch at each shape (its operands and result), to
+    hold it against the plain version at the path's own shapes after the
+    run; yields the dict of them by product count."""
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    seen, launch_k3 = {}, limbs._launch_k3
+
+    def recording_k3(a, b):
+        got = launch_k3(a, b)
+        key = got.numel() // limbs.N_LIMBS
+        if key not in seen:
+            seen[key] = (a.clone(), b.clone(), got.clone())
+        return got
+
+    limbs._launch_k3 = recording_k3
+    try:
+        yield seen
+    finally:
+        limbs._launch_k3 = launch_k3
+
+
+def k3_against_plain(seen: dict, label: str) -> None:
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    for products, (a, b, got) in seen.items():
+        if not torch.equal(got, limbs.mul_plain(a, b)):
+            raise AssertionError(f"{label}: K3 != plain at {products} products")
+
+
 def phase_bls_batches(seed: int) -> dict:
     """8b: BASELINE configs 2 and 3 at full size through
     ``ops.bls.batch_fast_aggregate_verify`` on the card (every verdict
     True), beside native ``BatchFastAggregateVerify``; then a mixed batch
     whose every verdict must equal native ``FastAggregateVerify``'s."""
     from consensus_specs_tpu_torch.crypto.bls import native
-
-    from consensus_specs_tpu_torch.ops.bls import limbs
 
     sks = list(range(1, 513))
     pks = [native.SkToPk(sk) for sk in sks]
@@ -2078,25 +2131,10 @@ def phase_bls_batches(seed: int) -> dict:
         # the first, untimed call (decompressions and subgroup checks)
         # keeps K3's first launch at each shape, to hold it against the
         # plain version at the path's own shapes
-        seen, launch_k3 = {}, limbs._launch_k3
-
-        def recording_k3(a, b):
-            got = launch_k3(a, b)
-            key = got.numel() // limbs.N_LIMBS
-            if key not in seen:
-                seen[key] = (a.clone(), b.clone(), got.clone())
-            return got
-
-        limbs._launch_k3 = recording_k3
-        try:
+        with k3_first_launches() as seen:
             first = device_batch(*args)
-        finally:
-            limbs._launch_k3 = launch_k3
         run = device_batch(*args)  # timed, with the wrapper as shipped
-        for a, b, got in seen.values():
-            if not torch.equal(got, limbs.mul_plain(a, b)):
-                raise AssertionError(f"{label}: K3 != plain at "
-                                     f"{got.numel() // limbs.N_LIMBS} products")
+        k3_against_plain(seen, label)
         shapes = run["shapes"]
         if not (all(first["verdicts"]) and all(run["verdicts"])):
             raise AssertionError(f"{label}: a valid item failed on the card")
@@ -2863,6 +2901,301 @@ def phase_node_recovery(served: dict) -> dict:
     return {"recover_s": t_recover, "literal_s": t_literal, **roots}
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+# a mainnet blob's field elements (FIELD_ELEMENTS_PER_BLOB) and a block's
+# blobs (MAX_BLOBS_PER_BLOCK)
+KZG_LANES = 4096
+BLOBS_PER_BLOCK = 16
+# the lanes held one by one against the host's scalar multiple
+KZG_HOST_LANES = 64
+# the blob domain, and the largest transform the lazy-carry bound admits
+NTT_SIZES = (4096, 1 << 14)
+
+
+def kzg_scalars(setup_scalars, n: int, seed: int) -> list:
+    """``n`` seeded scalars mod r whose lanes 0 and 1 give the same point
+    (lane 1's scalar is lane 0's times L_0(s) / L_1(s), the setup points'
+    discrete logs), so that the tail sum meets the doubling case, followed
+    by 0, 1, r - 1 and (r + 1) / 2."""
+    from consensus_specs_tpu_torch.crypto.fr import R
+
+    rng = np.random.default_rng(seed)
+    out = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    l0, l1 = setup_scalars[0], setup_scalars[1]
+    out[1] = out[0] * l0 * pow(l1, R - 2, R) % R
+    out[2:6] = [0, 1, R - 1, (R + 1) // 2]
+    return out
+
+
+def lagrange_scalars(n: int) -> list:
+    """L_i(s) of the insecure setup's secret over the order-n domain: the
+    discrete logs of ``crypto.kzg.setup_lagrange(n)``'s points (the
+    formula that function uses)."""
+    from consensus_specs_tpu_torch.crypto import kzg
+    from consensus_specs_tpu_torch.crypto.fr import R, root_of_unity
+
+    w, s = root_of_unity(n), kzg.INSECURE_SECRET
+    scale = (pow(s, n, R) - 1) * pow(n, R - 2, R) % R
+    out, wi = [], 1
+    for _ in range(n):
+        out.append(wi * scale * pow((s - wi) % R, R - 2, R) % R)
+        wi = wi * w % R
+    return out
+
+
+def phase_kzg_ntt(seed: int, device: str = "cuda", lanes: int = KZG_LANES,
+                  ntt_sizes=NTT_SIZES) -> dict:
+    """11a: the G1 lane MSM (``ops.kzg``, its products K3) at a blob's
+    width on the mainnet Lagrange setup, equal to the native fixed-base
+    MSM byte for byte and lane by lane to the host's multiples; the Fr NTT
+    (``ops.fr``) forward and inverse equal to ``crypto.fr.fft``; B12's
+    torch product timed on the card."""
+    from consensus_specs_tpu_torch.crypto import fr, kzg
+    from consensus_specs_tpu_torch.crypto.bls.curve import g1_to_bytes
+    from consensus_specs_tpu_torch.ops import fr as ops_fr
+    from consensus_specs_tpu_torch.ops import kzg as ops_kzg
+    from consensus_specs_tpu_torch.ops.bls import limbs
+
+    t0 = time.perf_counter()
+    setup = kzg.setup_lagrange(lanes)
+    t_setup = time.perf_counter() - t0
+    scalars = kzg_scalars(lagrange_scalars(lanes), lanes, seed)
+    if setup[0].mul(scalars[0]) != setup[1].mul(scalars[1]):
+        raise AssertionError("lanes 0 and 1 do not give the same point")
+    t0 = time.perf_counter()
+    native = kzg.g1_msm_native(setup, scalars, fixed_base=True)
+    t_native = time.perf_counter() - t0
+
+    limbs.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    with k3_first_launches() as seen:
+        got = ops_kzg.msm(setup, scalars, device=device)
+    t_msm = time.perf_counter() - t0
+    split = dict(ops_kzg.stats)
+    launches = limbs.counts["fq_mul"]
+    shapes = dict(sorted(limbs.launch_shapes.items()))
+    k3_against_plain(seen, "the lane MSM")
+    if g1_to_bytes(got) != native:
+        raise AssertionError("the lane MSM differs from the native fixed-base MSM")
+    expected = 28 * ops_kzg.N_BITS + 3
+    if _on_card(device) and launches != expected:
+        raise AssertionError(f"the lane MSM launched K3 {launches} times, "
+                             f"not {expected}")
+    print(f"KZG lane MSM on {device} at {lanes} lanes (the Lagrange setup, "
+          f"built on the host in {t_setup:.3f} s): {t_msm:.3f} s; host "
+          f"marshalling {split['marshal_s']:.3f} s, device loop (255 "
+          f"bit-planes, with its readback) {split['loop_s']:.3f} s, host "
+          f"unmarshalling {split['unmarshal_s']:.3f} s, host tail sum "
+          f"{split['tail_s']:.3f} s; K3 launches {launches} ({launches / ops_kzg.N_BITS:.2f} "
+          f"a bit-plane), shapes (products: launches) {shapes}, K3 == plain "
+          f"at each; == native fixed-base MSM byte for byte (native "
+          f"{t_native:.3f} s with its table)", flush=True)
+
+    few = min(KZG_HOST_LANES, lanes)
+    t0 = time.perf_counter()
+    lane_points = ops_kzg.batch_scalar_mul(setup[:few], scalars[:few], device=device)
+    t_few = time.perf_counter() - t0
+    bad = [i for i, (p, s, out) in enumerate(zip(setup, scalars, lane_points))
+           if out != p.mul(s)]
+    if bad:
+        raise AssertionError(f"lanes {bad} differ from the host's p.mul(s)")
+    print(f"{few} lanes (scalars 0, 1, r - 1, (r + 1) / 2 among them) each "
+          f"== the host's p.mul(s); {t_few:.3f} s", flush=True)
+
+    rng = np.random.default_rng(seed + 1)
+    ntt = {}
+    for n in ntt_sizes:
+        values = [int.from_bytes(rng.bytes(32), "little") % fr.R for _ in range(n)]
+        for inv in (False, True):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = ops_fr.ntt_device(values, inv=inv, device=device)
+            t_dev = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = fr.fft(values, inv=inv)
+            t_host = time.perf_counter() - t0
+            if out != want:
+                raise AssertionError(f"NTT at {n} (inverse {inv}) != crypto.fr.fft")
+            ntt[(n, inv)] = (t_dev, t_host)
+    x = torch.as_tensor(ops_fr.host_to_mont_rows(
+        [int.from_bytes(rng.bytes(32), "little") for _ in range(max(ntt_sizes))]),
+        device=device)
+    y = x.flip(0).contiguous()
+    mul_ms = cuda_ms(lambda: ops_fr.mul(x, y)) if _on_card(device) else None
+    print("Fr NTT on " + device + ": " + ", ".join(
+        f"{n} {'inverse' if inv else 'forward'} {t:.3f} s (host fft {h:.3f} s)"
+        for (n, inv), (t, h) in ntt.items())
+        + "; every output == crypto.fr.fft; B12's torch mul at "
+        f"{max(ntt_sizes)} products: "
+        + ("not timed (CPU)" if mul_ms is None else f"{mul_ms:.5f} ms (CUDA events)"),
+        flush=True)
+    return {"k3_launches": launches, "shapes": shapes, "msm_s": t_msm,
+            **split, "setup_s": t_setup, "fr_mul_ms": mul_ms}
+
+
+def phase_eip4844(n_validators: int, seed: int, device: str = "cuda",
+                  preset: str = "mainnet") -> dict:
+    """11b: one eip4844 block of ``BLOBS_PER_BLOCK`` seeded blobs at full
+    width on phase 6's bellatrix pre-state, upgraded: applied on a
+    CUDA-built spec with the ``"torch"`` SSZ hasher (K1) and on a CPU-built
+    spec under hashlib, roots equal; the blobs' sidecar verifies; the
+    block's commitments equal ``ops.kzg``'s lane sums, every blob's lanes
+    in one ``batch_scalar_mul``."""
+    from consensus_specs_tpu_torch import scenario
+    from consensus_specs_tpu_torch.crypto import bls, kzg
+    from consensus_specs_tpu_torch.crypto.bls.curve import g1_to_bytes
+    from consensus_specs_tpu_torch.ops import kzg as ops_kzg
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.ops.bls import limbs
+    from consensus_specs_tpu_torch.specs import get_spec
+    from consensus_specs_tpu_torch.ssz import hashing
+
+    bellatrix = get_spec("bellatrix", preset, device=device)
+    spec = get_spec("eip4844", preset, device=device)
+    t0 = time.perf_counter()
+    pre = spec.upgrade_to_eip4844(
+        scenario.build_main_path_state(bellatrix, n_validators))
+    pre.hash_tree_root()
+    t_state = time.perf_counter() - t0
+    blobs = scenario.seeded_blobs(spec, BLOBS_PER_BLOCK, seed)
+    t0 = time.perf_counter()
+    signed = scenario.blob_block(spec, pre, blobs, seed)
+    t_block = time.perf_counter() - t0
+    body = signed.message.body
+    payload_bytes = sum(len(tx) for tx in body.execution_payload.transactions)
+    print(f"set-up: eip4844 state of {n_validators} validators (bellatrix "
+          f"pre-state, upgraded) {t_state:.3f} s; one block with "
+          f"{len(body.attestations)} aggregate attestations, a full sync "
+          f"aggregate and {len(body.blob_kzgs)} blob commitments "
+          f"({len(blobs[0])} field elements a blob; payload "
+          f"{len(body.execution_payload.transactions)} transactions, "
+          f"{payload_bytes} bytes) {t_block:.3f} s", flush=True)
+
+    bls.bls_active = True
+    cpu_spec = get_spec("eip4844", preset, device="cpu")
+    cpu_state = cpu_leg_state(cpu_spec, pre)
+    cpu_block = cpu_spec.SignedBeaconBlock.decode_bytes(bytes(signed.encode_bytes()))
+    t0 = time.perf_counter()
+    cpu_spec.state_transition(cpu_state, cpu_block, True)
+    t_cpu = time.perf_counter() - t0
+    cpu_root = bytes(cpu_state.hash_tree_root())
+
+    post = pre.copy()
+    sha256.reset_counts()
+    hashing.set_backend("torch", device=device)
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        spec.state_transition(post, signed, True)
+        root = bytes(post.hash_tree_root())
+        _sync(device)
+        t_card = time.perf_counter() - t0
+    finally:
+        hashing.set_backend("hashlib")
+    k1 = sha256.counts["sha256_block64"]
+    print(f"eip4844 block on {device}: {t_card:.3f} s with the torch hasher "
+          f"(K1 launches {k1}); root {root.hex()}; cpu leg (hashlib) "
+          f"{t_cpu:.3f} s, root {cpu_root.hex()}", flush=True)
+    if root != cpu_root:
+        raise AssertionError("eip4844 post-state roots differ between the card and the CPU")
+    if _on_card(device) and k1 == 0:
+        raise AssertionError("the torch hasher launched K1 no time")
+
+    block_root = signed.message.hash_tree_root()
+    sidecar = spec.BlobsSidecar(beacon_block_root=block_root,
+                                beacon_block_slot=signed.message.slot,
+                                blobs=[spec.Blob(b) for b in blobs])
+    t0 = time.perf_counter()
+    spec.verify_blobs_sidecar(signed.message.slot, block_root,
+                              list(body.blob_kzgs), sidecar)
+    t_sidecar = time.perf_counter() - t0
+
+    setup = kzg.setup_lagrange(int(spec.FIELD_ELEMENTS_PER_BLOB))
+    points = [p for _ in blobs for p in setup]
+    scalars = [v for blob in blobs for v in blob]
+    limbs.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    with k3_first_launches() as seen:
+        lanes = ops_kzg.batch_scalar_mul(points, scalars, device=device)
+    t_lanes = time.perf_counter() - t0
+    split = dict(ops_kzg.stats)
+    launches = limbs.counts["fq_mul"]
+    k3_against_plain(seen, "the block's lanes")
+    width = len(setup)
+    t0 = time.perf_counter()
+    commitments = [g1_to_bytes(ops_kzg.lane_sum(lanes[i * width:(i + 1) * width]))
+                   for i in range(len(blobs))]
+    t_tail = time.perf_counter() - t0
+    if commitments != [bytes(c) for c in body.blob_kzgs]:
+        raise AssertionError("the block's commitments differ from ops.kzg's")
+    print(f"blobs sidecar verified in {t_sidecar:.3f} s; the {len(blobs)} "
+          f"commitments == ops.kzg on {device}: {len(points)} lanes as one "
+          f"batch_scalar_mul in {t_lanes:.3f} s (host marshalling "
+          f"{split['marshal_s']:.3f} s, device loop {split['loop_s']:.3f} s, "
+          f"host unmarshalling {split['unmarshal_s']:.3f} s), then "
+          f"{len(blobs)} host tail sums {t_tail:.3f} s; K3 launches "
+          f"{launches}, shapes {dict(sorted(limbs.launch_shapes.items()))}, "
+          f"K3 == plain at each", flush=True)
+    return {"root": root, "k1_launches": k1, "k3_launches": launches,
+            "lanes_s": t_lanes, **split}
+
+
+def phase_research_cases(device: str = "cuda") -> dict:
+    """11c: every case of the research forks' case files (custody game,
+    sharding, the experimental file with eip4844 and das) on specs built
+    for ``device`` at the minimal preset, their pytest fixtures supplied by
+    the loader; a case that fails or skips fails the phase, and no
+    CPU-built spec may appear."""
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.ops.bls import limbs
+    from consensus_specs_tpu_torch.testing import context, reference_cases
+    from consensus_specs_tpu_torch.testing.exceptions import SkippedTest
+
+    selected = reference_cases.research_cases()
+    cpu_specs = _spec_modules("cpu")
+    tallies = {}
+    is_pytest, context.is_pytest = context.is_pytest, False
+    sha256.reset_counts()
+    limbs.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with reference_cases.configured(device):
+            for relpath, name in selected:
+                tally = tallies.setdefault(relpath.split("/")[0],
+                                           {"passed": 0, "skipped": 0})
+                try:
+                    reference_cases.cases(relpath)[name]()
+                except SkippedTest:
+                    tally["skipped"] += 1
+                    continue
+                except BaseException:
+                    print(f"research case failed: {relpath}::{name}", flush=True)
+                    raise
+                tally["passed"] += 1
+            _sync(device)
+    finally:
+        context.is_pytest = is_pytest
+    seconds = time.perf_counter() - t0
+    passed = sum(t["passed"] for t in tallies.values())
+    print(f"research-fork cases on {device}-built specs: {len(selected)} cases "
+          f"in {seconds:.3f} s; "
+          + ", ".join(f"{d} {t['passed']} passed, {t['skipped']} skipped"
+                      for d, t in tallies.items())
+          + f"; K1 launches {sha256.counts['sha256_block64']}, K2 "
+          f"{sha256.counts['u64_list_root']}, K3 {limbs.counts['fq_mul']}",
+          flush=True)
+    if passed != len(selected):
+        raise AssertionError(f"{len(selected) - passed} of {len(selected)} "
+                             "research cases did not run")
+    new_cpu = _spec_modules("cpu") - cpu_specs
+    if _on_card(device) and new_cpu:
+        raise AssertionError(f"the cases built CPU specs: {sorted(new_cpu)}")
+    return {"cases": len(selected), "passed": passed, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2927,6 +3260,14 @@ def main(argv=None) -> int:
         phase_node_recovery(served)
     k2_node = served["k2_launches"]
     del served
+    gc.collect()
+    with _phase("11a the KZG lane MSM and the Fr NTT on the card"):
+        kzg_ntt = phase_kzg_ntt(args.seed)
+    with _phase(f"11b an eip4844 block of {BLOBS_PER_BLOCK} blobs at "
+                f"{N_VALIDATORS} validators"):
+        eip4844 = phase_eip4844(N_VALIDATORS, args.seed)
+    with _phase("11c the research forks' cases on CUDA-built specs"):
+        phase_research_cases()
 
     k1_entry = {
         "name": "sha256_block64",
@@ -2953,6 +3294,8 @@ def main(argv=None) -> int:
         # replayed under the "torch" hasher
         "launches_vector_gen": vectors_ssz["gen_k1"],
         "launches_vector_replay": vectors_ssz["replay_k1"],
+        # phase 11b: the eip4844 block's post-state root
+        "launches_eip4844_root": eip4844["k1_launches"],
     }
     k2_entry = {
         "name": "u64_list_root",
@@ -3005,6 +3348,11 @@ def main(argv=None) -> int:
             "launches_spec_cases": bls_cases["torch"]["launches"][label],
             # phase 9b: the bls vectors replayed under the "torch" backend
             "launches_vector_replay": vectors_bls["launches"][label],
+            # phase 11: the KZG lane MSM's products, a blob's 4,096 lanes
+            # (11a) and a block's 65,536 (11b)
+            **({"launches_kzg_msm": kzg_ntt["k3_launches"],
+                "launches_eip4844_msm": eip4844["k3_launches"]}
+               if label == "K3" else {}),
             "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["ms"],
             "plain_ms": numbers["plain_ms"],

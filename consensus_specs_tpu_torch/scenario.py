@@ -273,56 +273,115 @@ def _build_epoch_blocks(spec, state, with_sync: bool, seed: int,
                         address_changes: dict):
     build_st = state.copy()
     rng = np.random.default_rng(seed)
-    with_payload = (hasattr(state, "latest_execution_payload_header")
-                    and spec.is_merge_transition_complete(state))
-    signed_blocks = []
-    sync_sks = None
-    if with_sync:
-        sync_sks = [pubkey_to_privkey[bytes(pk)]
-                    for pk in state.current_sync_committee.pubkeys]
-    for i in range(int(spec.SLOTS_PER_EPOCH)):
-        slot = int(build_st.slot) + 1
-        stub = build_st.copy()
-        spec.process_slots(stub, slot)
-        proposer = spec.get_beacon_proposer_index(stub)
+    sync_sks = _sync_secret_keys(state) if with_sync else None
+    return [_next_signed_block(spec, build_st, rng, sync_sks,
+                               address_changes.get(i, ()))
+            for i in range(int(spec.SLOTS_PER_EPOCH))]
 
-        block = spec.BeaconBlock(slot=slot, proposer_index=proposer)
-        header = build_st.latest_block_header.copy()
-        if header.state_root == spec.Root():
-            header.state_root = build_st.hash_tree_root()
-        block.parent_root = header.hash_tree_root()
-        epoch = spec.compute_epoch_at_slot(slot)
-        block.body.randao_reveal = native.Sign(
+
+def _sync_secret_keys(state) -> list:
+    return [pubkey_to_privkey[bytes(pk)]
+            for pk in state.current_sync_committee.pubkeys]
+
+
+def _next_signed_block(spec, build_st, rng, sync_sks, changes=(), blobs=()):
+    """The signed block of the slot after ``build_st``'s, which it applies
+    to ``build_st``: the aggregates of the two preceding slots, an
+    execution payload past the merge (with a blob transaction a blob of
+    ``blobs`` and their commitments in the body, eip4844), ``changes``
+    (capella) and, given the committee's secret keys, a full sync
+    aggregate."""
+    slot = int(build_st.slot) + 1
+    stub = build_st.copy()
+    spec.process_slots(stub, slot)
+    proposer = spec.get_beacon_proposer_index(stub)
+
+    block = spec.BeaconBlock(slot=slot, proposer_index=proposer)
+    header = build_st.latest_block_header.copy()
+    if header.state_root == spec.Root():
+        header.state_root = build_st.hash_tree_root()
+    block.parent_root = header.hash_tree_root()
+    epoch = spec.compute_epoch_at_slot(slot)
+    block.body.randao_reveal = native.Sign(
+        _sk_for(proposer), spec.compute_signing_root(
+            epoch, spec.get_domain(build_st, spec.DOMAIN_RANDAO, epoch)))
+    for att in attestations_for(spec, stub, slot):
+        block.body.attestations.append(att)
+    if (hasattr(build_st, "latest_execution_payload_header")
+            and spec.is_merge_transition_complete(build_st)):
+        block.body.execution_payload = execution_payload(spec, stub, rng)
+    if blobs:
+        payload = block.body.execution_payload
+        for blob in blobs:
+            commitment = spec.blob_to_kzg(spec.Blob(blob))
+            block.body.blob_kzgs.append(commitment)
+            payload.transactions.append(blob_transaction(
+                spec, [spec.kzg_to_versioned_hash(commitment)]))
+        payload.block_hash = spec.hash(
+            payload.hash_tree_root() + b"scenario: execution block hash")
+    for change in changes:
+        block.body.bls_to_execution_changes.append(change)
+    if sync_sks is not None:
+        # process_sync_aggregate verifies over the previous slot's
+        # block root (altair/beacon-chain.md:536-543) = parent_root
+        domain = spec.get_domain(
+            build_st, spec.DOMAIN_SYNC_COMMITTEE,
+            spec.compute_epoch_at_slot(slot - 1))
+        root = spec.compute_signing_root(spec.Root(block.parent_root), domain)
+        block.body.sync_aggregate = spec.SyncAggregate(
+            sync_committee_bits=[True] * int(spec.SYNC_COMMITTEE_SIZE),
+            sync_committee_signature=_aggregate_sign(sync_sks, root),
+        )
+
+    spec.process_slots(build_st, slot)
+    spec.process_block(build_st, block)
+    block.state_root = build_st.hash_tree_root()
+    return spec.SignedBeaconBlock(
+        message=block,
+        signature=native.Sign(
             _sk_for(proposer), spec.compute_signing_root(
-                epoch, spec.get_domain(build_st, spec.DOMAIN_RANDAO, epoch)))
-        for att in attestations_for(spec, stub, slot):
-            block.body.attestations.append(att)
-        if with_payload:
-            block.body.execution_payload = execution_payload(spec, stub, rng)
-        for change in address_changes.get(i, ()):
-            block.body.bls_to_execution_changes.append(change)
-        if with_sync:
-            # process_sync_aggregate verifies over the previous slot's
-            # block root (altair/beacon-chain.md:536-543) = parent_root
-            domain = spec.get_domain(
-                build_st, spec.DOMAIN_SYNC_COMMITTEE,
-                spec.compute_epoch_at_slot(slot - 1))
-            root = spec.compute_signing_root(spec.Root(block.parent_root), domain)
-            block.body.sync_aggregate = spec.SyncAggregate(
-                sync_committee_bits=[True] * int(spec.SYNC_COMMITTEE_SIZE),
-                sync_committee_signature=_aggregate_sign(sync_sks, root),
-            )
+                block, spec.get_domain(
+                    build_st, spec.DOMAIN_BEACON_PROPOSER))))
 
-        spec.process_slots(build_st, slot)
-        spec.process_block(build_st, block)
-        block.state_root = build_st.hash_tree_root()
-        signed_blocks.append(spec.SignedBeaconBlock(
-            message=block,
-            signature=native.Sign(
-                _sk_for(proposer), spec.compute_signing_root(
-                    block, spec.get_domain(
-                        build_st, spec.DOMAIN_BEACON_PROPOSER)))))
-    return signed_blocks
+
+def blob_transaction(spec, versioned_hashes) -> bytes:
+    """An opaque blob transaction as eip4844's
+    ``tx_peek_blob_versioned_hashes`` reads one: the type byte, the
+    message's offset, then a message whose bytes 156:160 give the
+    position in the transaction of the versioned hashes that follow (the
+    shape the reference's experimental-fork tests build)."""
+    message_offset = 5
+    message = (bytes(156) + (message_offset + 160).to_bytes(4, "little")
+               + b"".join(bytes(h) for h in versioned_hashes))
+    return (bytes([int(spec.BLOB_TX_TYPE)])
+            + (message_offset - 1).to_bytes(4, "little") + message)
+
+
+def seeded_blobs(spec, count: int, seed: int) -> list:
+    """``count`` blobs of ``FIELD_ELEMENTS_PER_BLOB`` field elements from
+    ``seed``: 256 random bits an element, reduced mod the modulus."""
+    words = np.random.default_rng(seed).integers(
+        0, 2**64, size=(count, int(spec.FIELD_ELEMENTS_PER_BLOB), 4),
+        dtype=np.uint64)
+    modulus = int(spec.BLS_MODULUS)
+    return [[int.from_bytes(row.tobytes(), "little") % modulus for row in blob]
+            for blob in words]
+
+
+def blob_block(spec, state, blobs, seed: int = 0):
+    """One signed eip4844 block on ``state`` (left untouched), a state past
+    the merge with real sync committees (``build_main_path_state``, then
+    ``upgrade_to_eip4844``): the next slot's full block whose payload
+    carries a blob transaction a blob and whose body the blobs'
+    commitments, ``spec.blob_to_kzg`` of each.  Verification is off while
+    constructing; the caller's ``bls.bls_active`` is restored."""
+    was_active = bls.bls_active
+    bls.bls_active = False
+    try:
+        return _next_signed_block(spec, state.copy(), np.random.default_rng(seed),
+                                  _sync_secret_keys(state), blobs=blobs)
+    finally:
+        bls.bls_active = was_active
 
 
 def capella_withdrawal_epoch(spec, n: int, seed: int = 0):

@@ -23,9 +23,9 @@ setup.py:741-764, without the markdown round-trip):
 Port of ``consensus_specs_tpu/specs/builder.py``.  A spec is built for one
 torch device (``get_spec(fork, preset, device=None)``; None is the CUDA
 card): its epoch substitutions run their tensor work there.  The port
-builds the mainline ladder phase0 -> altair -> bellatrix -> capella; the
-research forks that hang off bellatrix in the reference come with ROADMAP
-queue A, item 18.
+builds the reference's fork topology: the mainline ladder phase0 ->
+altair -> bellatrix -> capella, and the research forks that hang off
+bellatrix (eip4844, sharding, and sharding's custody_game and das).
 """
 from __future__ import annotations
 
@@ -80,13 +80,19 @@ from consensus_specs_tpu_torch.ssz.types import (
 SRC_DIR = Path(__file__).parent / "src"
 
 # Fork topology: each fork execs its parent chain's sources then its own.
-# The port carries the reference's mainline ladder phase0 -> altair ->
-# bellatrix -> capella.
+# Mainline ladder phase0 -> altair -> bellatrix -> capella; experimental
+# branches hang off bellatrix (mirrors the reference's spec-fork layout:
+# eip4844/fork.md builds on bellatrix, sharding/custody_game/das are
+# bellatrix-era research forks).
 FORK_PARENTS = {
     "phase0": None,
     "altair": "phase0",
     "bellatrix": "altair",
     "capella": "bellatrix",
+    "eip4844": "bellatrix",
+    "sharding": "bellatrix",
+    "custody_game": "sharding",
+    "das": "sharding",
 }
 
 # Mainline order (kept for callers that iterate the production ladder).
@@ -94,9 +100,10 @@ FORK_ORDER = ("phase0", "altair", "bellatrix", "capella")
 
 # The forks that inherit altair's process_attestation and sync aggregate
 # verbatim: they take the vectorized attestation path and its
-# participation scope.  The reference's sharding-family forks redefine
-# process_attestation and keep the sequential path.
-ALTAIR_LINEAGE = ("altair", "bellatrix", "capella")
+# participation scope.  The sharding-family forks redefine
+# process_attestation with shard-header voting and keep the sequential
+# path.
+ALTAIR_LINEAGE = ("altair", "bellatrix", "capella", "eip4844")
 
 
 def fork_chain(fork: str) -> Tuple[str, ...]:
@@ -646,12 +653,16 @@ def _swap(g: Dict[str, Any], name: str, fn) -> None:
 
 
 # process_slashings carries a fork-specific proportional multiplier
-# constant
+# constant; experimental forks inherit their parent's epoch processing
 _SLASHING_MULT = {
     "phase0": "PROPORTIONAL_SLASHING_MULTIPLIER",
     "altair": "PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR",
     "bellatrix": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
     "capella": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+    "eip4844": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+    "sharding": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+    "custody_game": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+    "das": "PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
 }
 
 

@@ -14,9 +14,13 @@
   ``"torch"`` hashing backend hashes one tree through its wave route, and
   the node's serving path (``forkchoice``, ``persist``, ``query``,
   ``node``) serves a minimal firehose with a query reader and a
-  checkpoint store, equal to its literal replay;
+  checkpoint store, equal to its literal replay, and the KZG and Fr
+  layer (``crypto.fr``, ``crypto.kzg``, ``ops.fr``, ``ops.kzg``) runs an
+  NTT and a lane product on the CPU, the four research specs build and
+  a fixture-taking research case file runs;
 * a static scan of the port's sources finds no such import, nor one of
-  ``yaml``, and covers the vector layer's files and the serving path's;
+  ``yaml``, and covers the vector layer's files, the serving path's and
+  the research layer's;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU.
 """
@@ -153,6 +157,30 @@ literal = firehose.replay_journal_literal(spec, genesis, corpus.anchor_block,
                                           run["node"].journal)
 firehose.assert_parity(spec, run["node"], literal)
 bls.bls_active = True
+# KZG and Fr with the research forks: the host field and commitments, the
+# device NTT and lane product (a few bit-planes) on the CPU, the four
+# research specs and the loader's fixture-taking research case files
+RESEARCH_LAYER = ["crypto.fr", "crypto.kzg", "ops.fr", "ops.kzg"]
+missing = [m for m in RESEARCH_LAYER if "consensus_specs_tpu_torch." + m not in names]
+assert missing == [], missing
+import numpy as np
+import torch
+from consensus_specs_tpu_torch.crypto import fr, kzg
+from consensus_specs_tpu_torch.crypto.bls.curve import g1_generator
+from consensus_specs_tpu_torch.ops import fr as ops_fr, kzg as ops_kzg
+values = list(range(1, 9))
+assert ops_fr.ntt_device(values, device="cpu") == fr.fft(values)
+points = kzg.setup_lagrange(4)
+scalars = [3, 0, 5, 15]
+px, py = (torch.as_tensor(a) for a in ops_kzg.points_to_limbs(points))
+bits = torch.as_tensor(ops_kzg.to_bits(scalars)[-4:])  # 4-bit scalars
+lanes = ops_kzg.limbs_to_points(*(a.numpy() for a in ops_kzg.msm_lanes(px, py, bits)))
+assert lanes == [p.mul(s) for p, s in zip(points, scalars)]
+for fork in ("eip4844", "sharding", "custody_game", "das"):
+    assert get_spec(fork, "minimal", device="cpu").fork == fork
+custody = reference_cases.cases("custody_game/test_epoch_processing.py")
+with reference_cases.configured("cpu", bls_active=False):
+    custody["test_reveal_deadlines_no_slash_within_grace"]()
 context.is_pytest = True
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
@@ -238,6 +266,30 @@ def test_static_scan_covers_the_serving_layer():
     assert set(serving) <= set(port.rglob("*.py"))
     assert [(str(p.relative_to(ROOT)), name) for p in serving
             for name in _imports(p) if _is_forbidden(name)] == []
+
+
+def test_static_scan_covers_the_research_layer():
+    port = ROOT / PORT
+    research = [port / "crypto" / "fr.py", port / "crypto" / "kzg.py",
+                port / "ops" / "fr.py", port / "ops" / "kzg.py"] + [
+        port / "specs" / "src" / f"{fork}.py"
+        for fork in ("eip4844", "sharding", "custody_game", "das")]
+    assert all(p.is_file() for p in research)
+    assert set(research) <= set(port.rglob("*.py"))
+    assert [(str(p.relative_to(ROOT)), name) for p in research
+            for name in _imports(p) if _is_forbidden(name)] == []
+
+
+def test_research_layer_without_a_device_needs_cuda(monkeypatch):
+    from consensus_specs_tpu_torch.crypto import kzg
+    from consensus_specs_tpu_torch.ops import fr as ops_fr
+    from consensus_specs_tpu_torch.ops import kzg as ops_kzg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops_fr.ntt_device([1, 2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops_kzg.batch_scalar_mul(kzg.setup_lagrange(2), [1, 2])
 
 
 def test_hashing_lazy_backends_name_only_the_port():

@@ -57,9 +57,6 @@ EXCLUDED = {
         "reference package",
     "phase0/test_epoch_kernel.py":
         "JAX internals: ops/epoch_jax",
-    "phase0/test_pubkey_column.py":
-        "pytest-native: a module fixture over the reference spec builder's "
-        "pubkey-column substitution",
 }
 
 

@@ -10,10 +10,13 @@ DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 
 def params(forks):
     """A parameter for each loadable case in the directories of ``forks``:
-    ``slow`` unless the port's ``TIER1`` subset holds its file."""
+    ``slow`` unless the port's ``TIER1`` subset holds its file and the case
+    is not one of its ``TIER1_SLOW_CASES``."""
     tier1 = reference_cases.TIER1
+    slow = set(reference_cases.TIER1_SLOW_CASES)
     return [pytest.param(f, name, id=f"{f}::{name}",
-                         marks=() if f.startswith(tier1) else pytest.mark.slow)
+                         marks=() if f.startswith(tier1) and (f, name) not in slow
+                         else pytest.mark.slow)
             for f, name in reference_cases.loadable_cases(forks)]
 
 
