@@ -17,12 +17,16 @@
   checkpoint store, equal to its literal replay, and the KZG and Fr
   layer (``crypto.fr``, ``crypto.kzg``, ``ops.fr``, ``ops.kzg``) runs an
   NTT and a lane product on the CPU, the four research specs build and
-  a fixture-taking research case file runs;
+  a fixture-taking research case file runs, and the survival and
+  network-facing layer (``node.adversary``, ``telemetry.soak``, ``p2p``,
+  ``deposit_contract``, ``evm``) serves an adversarial firehose equal to
+  its literal replay, draws the soak's fault plans, and runs the vendored
+  deposit contract's bytecode to ``DepositTree``'s root;
 * a static scan of the port's sources finds no such import, nor one of
-  ``yaml``, and covers the vector layer's files, the serving path's and
-  the research layer's;
+  ``yaml``, and covers the vector layer's files, the serving path's, the
+  research layer's and the survival and network-facing layer's;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
-  the CPU.
+  the CPU (the soak's ``run_soak`` among its entry points).
 """
 import ast
 import os
@@ -181,6 +185,31 @@ for fork in ("eip4844", "sharding", "custody_game", "das"):
 custody = reference_cases.cases("custody_game/test_epoch_processing.py")
 with reference_cases.configured("cpu", bls_active=False):
     custody["test_reveal_deadlines_no_slash_within_grace"]()
+# the survival and network-facing layer: an adversarial firehose, the
+# soak's fault plans, the gossip ids, the deposit contract on the EVM
+SURVIVAL_LAYER = ["node.adversary", "telemetry.soak", "p2p",
+                  "deposit_contract", "evm", "evm.keccak"]
+missing = [m for m in SURVIVAL_LAYER if "consensus_specs_tpu_torch." + m not in names]
+assert missing == [], missing
+import json
+from consensus_specs_tpu_torch import deposit_contract, evm, p2p
+from consensus_specs_tpu_torch.gen.snappy import compress
+from consensus_specs_tpu_torch.node import adversary
+from consensus_specs_tpu_torch.telemetry import soak
+bls.bls_active = False
+adv = adversary.build_adversarial_corpus(spec, genesis, n_epochs=3, gossip_target=64)
+served = adversary.run_adversarial_firehose(spec, genesis, adv, producer_timeout=60.0)
+firehose.assert_parity(spec, served["node"], firehose.replay_journal_literal(
+    spec, genesis, adv.anchor_block, served["node"].journal))
+bls.bls_active = True
+sites = soak._stf_sites()
+assert soak._epoch_plan(0, 90001, sites, breaker_trip=True).faults()
+assert len(p2p.compute_message_id(compress(b"no jax"))) == 20
+artifact = json.loads((Path(deposit_contract.__file__).parent / "vendor" /
+                       "deposit_contract" / "deposit_contract.json").read_text())
+contract = evm.deploy(bytes.fromhex(artifact["bytecode"][2:]))
+assert contract.call("get_deposit_root()", [], [], static=True) == \
+    deposit_contract.DepositTree().get_root()
 context.is_pytest = True
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
@@ -262,7 +291,7 @@ def test_static_scan_covers_the_serving_layer():
     port = ROOT / PORT
     serving = [f for d in ("forkchoice", "persist", "query", "node")
                for f in sorted((port / d).glob("*.py"))]
-    assert len(serving) == 18
+    assert len(serving) == 19  # node/adversary.py among them
     assert set(serving) <= set(port.rglob("*.py"))
     assert [(str(p.relative_to(ROOT)), name) for p in serving
             for name in _imports(p) if _is_forbidden(name)] == []
@@ -278,6 +307,37 @@ def test_static_scan_covers_the_research_layer():
     assert set(research) <= set(port.rglob("*.py"))
     assert [(str(p.relative_to(ROOT)), name) for p in research
             for name in _imports(p) if _is_forbidden(name)] == []
+
+
+def test_static_scan_covers_the_survival_and_network_layer():
+    port = ROOT / PORT
+    layer = [port / "node" / "adversary.py", port / "telemetry" / "soak.py",
+             port / "p2p.py", port / "deposit_contract.py",
+             port / "evm" / "__init__.py", port / "evm" / "keccak.py"]
+    assert all(p.is_file() for p in layer)
+    assert set(layer) <= set(port.rglob("*.py"))
+    assert [(str(p.relative_to(ROOT)), name) for p in layer
+            for name in _imports(p) if _is_forbidden(name)] == []
+    # the vendored artifact is the port's own copy: no source of the port
+    # names the JAX package's vendor directory
+    assert not [str(p.relative_to(ROOT)) for p in port.rglob("*.py")
+                if "consensus_specs_tpu/vendor" in p.read_text()]
+
+
+def test_soak_without_a_device_needs_cuda(monkeypatch, tmp_path):
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.telemetry import soak
+    from consensus_specs_tpu_torch.testing import context
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = (context.spec_device(), bls.backend_name(), bls.bls_active)
+    out = tmp_path / "soak.json"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        soak.run_soak("bounded", out_path=str(out))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        soak.run_endurance(minutes=1.0, out_path=str(out))
+    assert not out.exists()
+    assert (context.spec_device(), bls.backend_name(), bls.bls_active) == before
 
 
 def test_research_layer_without_a_device_needs_cuda(monkeypatch):
