@@ -226,13 +226,35 @@ seconds:
    equal; the vendored bytecode on the port's EVM for the first 1,024
    deposits, its ``get_deposit_root``, count and logs equal to
    ``DepositTree``'s and ``deposit_event_data``'s.
+13. the process fabric (``dist/``): two supervised worker processes
+   (``python -m consensus_specs_tpu_torch.dist.worker``) on the one card,
+   warmed first (torch, the CUDA context, the libraries phase 1 built;
+   spawn-to-hello and warm-up seconds printed), then its four workloads
+   at 400,000 validators, each leg printing its seconds and the bytes
+   shipped a task, and each a clean fabric run (mode ``"fabric"``, no
+   error reply, no in-process fallback, no chunk re-dispatched): 13a the
+   epoch balances of the seeded ``DeltaInputs`` in 2 slices, equal to the
+   in-process twin on the card and to ``attestation_deltas`` on the CPU;
+   13b the ``List[uint64, 2**40]`` root of those balances in 2 chunks,
+   equal to the SSZ root under hashlib and to K2's resident root on the
+   card; 13c 8b's config 3 as 128 pairing lanes (64 lanes a chunk, each
+   worker's Miller product split into K4 launches of at most 4 pairs an
+   item), valid then with one pk lane swapped: True then False, each
+   worker's partial equal to the coordinator's as canonical Fq12 limbs,
+   and the K3 and K4 launches each worker made (from its reply) beside
+   the coordinator's K3 and K5 (the merge and final exponentiation); 13d
+   ``batch_first_invalid`` over 128 entries with a bad one at index 77,
+   the index ``stf.verify.first_invalid`` names; 13e a fresh fabric under
+   the plan ``dist.worker.exec@1=crash@proc1``, 13b's root and 13c's
+   valid verdict again, each recovered on the fabric with a chunk
+   re-dispatched and a worker lost.
 
 The phases run in this order: 1 to 4, then 8a (the last phase whose times
 go into the kernels line), then phases 5 to 9b beside a second process
 (``python3 chip_smoke.py --helper``, its lines marked ``[helper]``) that
 runs 7a, 7b's altair and bellatrix epochs, 9c, 11c, 12b and 12c, which
 launch no kernel and share no state with the others, on the host's spare
-cores.  The script waits for its end, then runs 10a to 12a alone.  The
+cores.  The script waits for its end, then runs 10a to 13 alone.  The
 run must end within 1,200 s, builds included; in one process the phases
 took 1,147 s on a fast H100 host, and about 18 % longer on slower ones.
 The times that phases 5 to 9b and the second process print were taken
@@ -2063,11 +2085,9 @@ MIXED_BATCH = 64
 
 
 def _bls_counts() -> dict:
-    from consensus_specs_tpu_torch.ops.bls import limbs, pairing
+    from consensus_specs_tpu_torch.ops.bls import launch_counts
 
-    return {"K3": limbs.counts["fq_mul"],
-            "K4": pairing.counts["miller_dbl_run"],
-            "K5": pairing.counts["fq12_sq_run"]}
+    return launch_counts()
 
 
 def _reset_bls_counts() -> None:
@@ -3650,6 +3670,246 @@ def phase_deposits(n: int, seed: int, device: str = "cuda",
             "build_s": t_build, "evm_s": t_evm, "root": host_root.hex()}
 
 
+# -- phase 13: the process fabric ---------------------------------------------
+
+DIST_WORKERS = 2
+DIST_PAIRING_ITEMS = 64     # 8b's config 3: 64 aggregates of 128 pubkeys
+DIST_PAIRING_KEYS = 128
+DIST_VERIFY_ENTRIES = 128
+DIST_BAD_ENTRY = 77
+DIST_KILL_PLAN = "dist.worker.exec@1=crash@proc1"
+REGISTRY_LIMIT = 2**40      # VALIDATOR_REGISTRY_LIMIT (config/presets.py)
+
+
+def _dist_leg(label: str, run, clean: bool = True):
+    """One leg of phase 13 with the fabric's counters zeroed just before
+    it: ``(value, mode, seconds, counters)``; a clean leg must run on the
+    fabric with no error reply, no in-process fallback and no chunk
+    re-dispatched (a worker that could not reach the card fails here)."""
+    from consensus_specs_tpu_torch.dist import dispatch, fabric as fabmod
+
+    dispatch.reset_stats()
+    fabmod.reset_stats()
+    t0 = time.perf_counter()
+    value, mode = run()
+    seconds = time.perf_counter() - t0
+    snap = {**dispatch.snapshot(), **fabmod.snapshot()}
+    per_task = snap["bytes_sent"] / max(snap["dispatched"], 1)
+    print(f"13 {label}: {mode} in {seconds:.3f} s; {snap['dispatched']} "
+          f"tasks, {per_task:,.0f} bytes shipped a task, "
+          f"{snap['bytes_received']:,} bytes back; re-dispatched "
+          f"{snap['redispatched_chunks']}, workers lost {snap['workers_lost']}, "
+          f"error replies {snap['error_replies']}, fallbacks "
+          f"{snap['fallback_runs']}", flush=True)
+    if clean and (mode != "fabric" or snap["error_replies"]
+                  or snap["fallback_runs"] or snap["redispatched_chunks"]):
+        raise AssertionError(f"13 {label}: not a clean fabric run ({mode}, "
+                             f"{snap})")
+    return value, mode, seconds, snap
+
+
+def _fq12_canonical(partial: np.ndarray) -> torch.Tensor:
+    from consensus_specs_tpu_torch.ops.bls import tower
+
+    return tower.fq12_canonical(torch.as_tensor(np.asarray(partial)))
+
+
+def dist_pairing_lanes(items: int = DIST_PAIRING_ITEMS,
+                       n_keys: int = DIST_PAIRING_KEYS):
+    """8b's config 3 as pairing lanes: ``items`` aggregates of ``n_keys``
+    pubkeys (``SkToPk`` of the test keys 1..n_keys, signed natively), two
+    lanes an item, ``(aggregate pk, H(m))`` and ``(-G1, sig)``; and the
+    same lanes with the first pk lane swapped for one key's pubkey."""
+    from consensus_specs_tpu_torch.crypto.bls import native
+    from consensus_specs_tpu_torch.crypto.bls.curve import pubkey_to_point
+    from consensus_specs_tpu_torch.ops import bls as device_bls
+
+    sks = list(range(1, n_keys + 1))
+    pks = [native.SkToPk(sk) for sk in sks]
+    agg = native.Aggregate([native.Sign(sk, BLS_MESSAGE) for sk in sks])
+    _, todo = device_bls.marshal_fast_aggregate_items(
+        [pks] * items, [BLS_MESSAGE] * items, [agg] * items)
+    lanes = [pair for _, item in todo for pair in item]
+    if len(lanes) != 2 * items:
+        raise AssertionError(f"{len(lanes)} lanes from {items} aggregates")
+    tampered = [(pubkey_to_point(pks[0]), lanes[0][1])] + lanes[1:]
+    return lanes, tampered
+
+
+def dist_verify_entries(n: int = DIST_VERIFY_ENTRIES,
+                        bad: int = DIST_BAD_ENTRY) -> list:
+    """``n`` verify-lane ``SigEntry``s of two keys each, the entry at
+    ``bad`` signed over another message."""
+    from consensus_specs_tpu_torch.crypto.bls import native
+
+    entries = []
+    for i in range(n):
+        sks = [2 * i + 1, 2 * i + 2]
+        msg = i.to_bytes(4, "little") * 8
+        signed = msg if i != bad else hashlib.sha256(msg).digest()
+        sig = native.Aggregate([native.Sign(sk, signed) for sk in sks])
+        flat = b"".join(native.pubkey_affine(native.SkToPk(sk)) for sk in sks)
+        entries.append((2, flat, msg, sig))
+    return entries
+
+
+def phase_dist_fabric(n_validators: int, device: str = "cuda",
+                      pairing_items: int = DIST_PAIRING_ITEMS) -> dict:
+    """13: the process fabric (``dist/``) with ``DIST_WORKERS`` supervised
+    worker processes on ``device`` (the one card), its four workloads at
+    ``n_validators``, each leg against its in-process twin, then a worker
+    killed mid-chunk over the list root and the pairing check."""
+    from consensus_specs_tpu_torch import faults, scenario
+    from consensus_specs_tpu_torch.dist import Fabric, FabricExecutor
+    from consensus_specs_tpu_torch.dist import dispatch, workloads
+    from consensus_specs_tpu_torch.dist.dispatch import TaskSpec
+    from consensus_specs_tpu_torch.ops import merkle_resident, sha256
+    from consensus_specs_tpu_torch.ssz import bulk
+    from consensus_specs_tpu_torch.ssz.types import List as SSZList, uint64
+    from consensus_specs_tpu_torch.stf import verify as stf_verify
+
+    inp, balances = scenario.example_delta_inputs(n_validators)
+    lanes, tampered = dist_pairing_lanes(pairing_items)
+    entries = dist_verify_entries()
+    out = {"legs": {}, "worker_launches": {"K3": 0, "K4": 0, "K5": 0},
+           "coordinator_launches": {"K3": 0, "K4": 0, "K5": 0}}
+
+    t0 = time.perf_counter()
+    with Fabric(n_workers=DIST_WORKERS, device=device) as fab:
+        # the workers' start-up, paid before the timed legs: torch, the
+        # device context, the kernel libraries phase 1 built
+        warm = dispatch.run_tasks(
+            fab, [TaskSpec("warm", {}, b"")] * DIST_WORKERS,
+            deadline_s=workloads.TASK_DEADLINE_S)
+        hellos = {w.name: w.hello_s for w in fab.alive_workers()}
+        print(f"13 workers: spawn to hello {hellos} s; warm-up "
+              f"{ {m['proc']: round(m['warm_s'], 3) for m, _ in warm} } s on "
+              f"{sorted({m['device'] for m, _ in warm})}; "
+              f"{time.perf_counter() - t0:.3f} s from spawn", flush=True)
+        if {m["proc"] for m, _ in warm} != set(hellos):
+            raise AssertionError(f"warm-up missed a worker: {warm}")
+        ex = FabricExecutor(fab)
+
+        # 13a: the epoch balances, 2 slices
+        new, _, secs, _ = _dist_leg(
+            f"a epoch balances at {n_validators} validators, 2 slices",
+            lambda: workloads.epoch_balances(ex, inp, balances, n_slices=2,
+                                             device=device))
+        twin = workloads.balance_update(inp, balances, device)
+        host = workloads.balance_update(inp, balances, "cpu")
+        if not (np.array_equal(new, twin) and np.array_equal(new, host)):
+            raise AssertionError("13a: the fabric's balances differ from the "
+                                 "in-process twin's or the CPU's")
+        out["legs"]["epoch"] = secs
+
+        # 13b: the list root of 13a's balances, 2 chunks, with its oracles
+        root, _, secs, _ = _dist_leg(
+            f"b List[uint64, 2**40] root of {n_validators} balances, "
+            f"2 chunks",
+            lambda: workloads.uint64_list_root(ex, new, REGISTRY_LIMIT,
+                                               n_chunks=2))
+        out["legs"]["merkle"] = secs
+        ssz_list = SSZList[uint64, REGISTRY_LIMIT]()
+        bulk.set_packed_uint64_from_numpy(ssz_list, new)
+        ssz_root = bytes(ssz_list.hash_tree_root())  # hashlib: the default
+        sha256.reset_counts()
+        resident = merkle_resident.ResidentPackedU64List(REGISTRY_LIMIT,
+                                                         device)
+        resident.upload(new)
+        k2_root = resident.root()
+        out["oracle_k2_launches"] = sha256.counts["u64_list_root"]
+        print(f"13b oracles: hashlib's SSZ root 0x{ssz_root.hex()}, "
+              f"{device}'s resident root (K2 launches "
+              f"{out['oracle_k2_launches']}) 0x{k2_root.hex()}; the fabric's "
+              f"0x{root.hex()}", flush=True)
+        if not root == ssz_root == k2_root:
+            raise AssertionError("13b: the fabric's root differs")
+        if _on_card(device) and out["oracle_k2_launches"] <= 0:
+            raise AssertionError("13b: the K2 oracle launched no kernel")
+
+        # 13c: the pairing lanes, valid then tampered, C lanes a chunk
+        chunks = workloads._pairing_lane_chunks(lanes, 2)
+        C = chunks[0][0].shape[0]
+        for label, pairs, want in (("valid", lanes, True),
+                                   ("tampered", tampered, False)):
+            replies = []
+            _reset_bls_counts()
+            verdict, _, secs, _ = _dist_leg(
+                f"c pairing check, {label}, {len(pairs)} lanes, {C} a chunk",
+                lambda: workloads.pairing_lanes_check(
+                    ex, pairs, n_chunks=2, device=device,
+                    replies_out=replies))
+            _sync(device)
+            coordinator = _bls_counts()
+            out["legs"][f"pairing_{label}"] = secs
+            per_worker = {m["proc"]: m["launches"] for m, _ in replies}
+            print(f"13c {label}: verdict {verdict}; launches by worker "
+                  f"{per_worker}; on the coordinator (merge and final "
+                  f"exponentiation) {coordinator}", flush=True)
+            if verdict is not want:
+                raise AssertionError(f"13c {label}: verdict {verdict}")
+            if set(per_worker) != {f"proc{i + 1}"
+                                   for i in range(DIST_WORKERS)}:
+                raise AssertionError(f"13c: chunks ran on {per_worker}")
+            for k in out["worker_launches"]:
+                out["worker_launches"][k] += sum(
+                    v[k] for v in per_worker.values())
+                out["coordinator_launches"][k] += coordinator[k]
+            if _on_card(device) and any(
+                    v["K4"] <= 0 or v["K3"] <= 0
+                    for v in per_worker.values()):
+                raise AssertionError(f"13c: a worker launched no K3 or K4: "
+                                     f"{per_worker}")
+            if _on_card(device) and coordinator["K5"] <= 0:
+                raise AssertionError("13c: the final exponentiation launched "
+                                     "no K5")
+            for d, (chunk, (_, partial)) in enumerate(
+                    zip(workloads._pairing_lane_chunks(pairs, 2), replies)):
+                mine = workloads.chunk_partial(*chunk, device)
+                if not torch.equal(_fq12_canonical(partial),
+                                   _fq12_canonical(mine)):
+                    raise AssertionError(f"13c {label}: chunk {d}'s worker "
+                                         f"partial differs from the "
+                                         f"coordinator's")
+        print(f"13c: each worker's partial equals the coordinator's, as "
+              f"canonical Fq12 limbs, in both checks", flush=True)
+
+        # 13d: the verify lane's leftmost failure
+        first, _, secs, _ = _dist_leg(
+            f"d first_invalid over {len(entries)} entries, 2 chunks",
+            lambda: workloads.batch_first_invalid(ex, entries, n_chunks=2))
+        want = stf_verify.first_invalid(entries)
+        print(f"13d: the fabric names entry {first}, first_invalid "
+              f"{want}", flush=True)
+        if not first == want == DIST_BAD_ENTRY:
+            raise AssertionError(f"13d: {first} vs {want}")
+        out["legs"]["verify"] = secs
+
+    # 13e: a worker dies mid-chunk: proc1's first task, in each incarnation
+    plan = faults.plan_from_env(DIST_KILL_PLAN)
+    with faults.inject(plan):
+        with Fabric(n_workers=DIST_WORKERS, device=device) as fab:
+            ex = FabricExecutor(fab)
+            killed_root, mode, secs, snap = _dist_leg(
+                f"e list root under {DIST_KILL_PLAN}",
+                lambda: workloads.uint64_list_root(ex, new, REGISTRY_LIMIT,
+                                                   n_chunks=2), clean=False)
+            if (killed_root, mode) != (root, "fabric") or snap[
+                    "redispatched_chunks"] < 1 or snap["workers_lost"] < 1:
+                raise AssertionError(f"13e: root recovery failed ({mode})")
+            out["legs"]["merkle_killed"] = secs
+            verdict, mode, secs, snap = _dist_leg(
+                f"e pairing check under {DIST_KILL_PLAN} (proc1 respawned)",
+                lambda: workloads.pairing_lanes_check(
+                    ex, lanes, n_chunks=2, device=device), clean=False)
+            if (verdict, mode) != (True, "fabric") or snap[
+                    "redispatched_chunks"] < 1 or snap["workers_lost"] < 1:
+                raise AssertionError(f"13e: pairing recovery failed ({mode})")
+            out["legs"]["pairing_killed"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- the second process -------------------------------------------------------
 
 
@@ -3805,6 +4065,8 @@ def main(argv=None) -> int:
     with _phase(f"12a the adversarial firehose at {N_VALIDATORS} validators"):
         adversarial = phase_node_adversarial(N_VALIDATORS,
                                              honest_atts_per_s=atts_10b)
+    with _phase(f"13 the process fabric at {N_VALIDATORS} validators"):
+        dist = phase_dist_fabric(N_VALIDATORS)
 
     k1_entry = {
         "name": "sha256_block64",
@@ -3857,6 +4119,8 @@ def main(argv=None) -> int:
         # the adversarial firehose (phase 12a): the fused epoch updates of
         # the canonical chain through the engine-backed on_block
         "launches_node_adversarial": adversarial["k2_launches"],
+        # phase 13b: the K2 oracle of the fabric's 400k list root
+        "launches_dist_oracle": dist["oracle_k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -3895,6 +4159,11 @@ def main(argv=None) -> int:
             **({"launches_kzg_msm": kzg_ntt["k3_launches"],
                 "launches_eip4844_msm": eip4844["k3_launches"]}
                if label == "K3" else {}),
+            # phase 13c: the two workers' partial Miller products (K3, K4;
+            # the Miller loop runs no squaring chain, so K5 0) and the
+            # coordinator's merge and final exponentiation (K3, K5)
+            "launches_dist_workers": dist["worker_launches"][label],
+            "launches_dist_coordinator": dist["coordinator_launches"][label],
             "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["ms"],
             "plain_ms": numbers["plain_ms"],

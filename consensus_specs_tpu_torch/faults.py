@@ -68,10 +68,9 @@ _PROC_RE = re.compile(r"proc\d+")
 
 # this process's identity within an active dist fabric (None outside
 # one): the coordinator sets "proc0" while a fabric is alive, workers
-# set theirs at spawn (the fabric itself waits for ROADMAP queue A,
-# item 14).  Scoped faults fire only in their addressed process WHEN a
-# scope is set; with no fabric active the scope is ignored and scoped
-# faults are armed everywhere.
+# inherit theirs from CSTPU_DIST_PROC at spawn.  Scoped faults fire only
+# in their addressed process WHEN a scope is set; with no fabric active
+# the scope is ignored and scoped faults are armed everywhere.
 _PROC_SCOPE: Optional[str] = None
 
 
@@ -327,4 +326,9 @@ def plan_to_env(plan: FaultPlan) -> str:
 _env = os.environ.get("CSTPU_FAULTS")
 if _env:  # bench/CI chaos runs: arm the process-wide plan at import
     _PLAN = plan_from_env(_env)
+del _env
+
+_env = os.environ.get("CSTPU_DIST_PROC")
+if _env:  # dist worker subprocess: scope set before any probe can fire
+    set_process_scope(_env)
 del _env

@@ -451,7 +451,11 @@ def run_adversarial_firehose(spec, anchor_state, corpus: AdversarialCorpus,
         (dedup), then fresh reserve gossip (shed while quarantined)."""
         try:
             # the clock-rewind attack: a backwards tick must die at
-            # admission (the spec's on_tick would rewind store.time)
+            # admission (the spec's on_tick would rewind store.time); sent
+            # once the chain's first tick has moved the clock, so that it
+            # is backwards however the threads are scheduled
+            if not _wait_clock(first_slot):
+                return
             node.enqueue_tick(1, timeout=producer_timeout)
             for _ in range(junk_rounds):
                 for kind, payload in corpus.junk:
@@ -491,6 +495,14 @@ def run_adversarial_firehose(spec, anchor_state, corpus: AdversarialCorpus,
                 if fresh:
                     node.enqueue_attestations(
                         fresh, timeout=producer_timeout)
+            # the flooder's last charge lands after the chain's final
+            # tick, whose housekeeping runs the last score decay before
+            # the loop judges any later item: its score is still tracked
+            # when the run ends however early its schedule ran (its
+            # charges decay 0.75 a slot and a score under 0.01 drops)
+            if not _wait_clock(final_clock):
+                return
+            node.queue.put("block", b"\xfe@end", timeout=producer_timeout)
         except BaseException as exc:
             _fail(exc)
 

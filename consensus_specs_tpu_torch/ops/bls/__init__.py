@@ -61,6 +61,13 @@ except (ImportError, OSError):
 
 G2_POINT_AT_INFINITY = _py.G2_POINT_AT_INFINITY
 
+def launch_counts() -> dict:
+    """The launches of K3, K4 and K5 in this process so far."""
+    return {"K3": limbs.counts["fq_mul"],
+            "K4": pairing.counts["miller_dbl_run"],
+            "K5": pairing.counts["fq12_sq_run"]}
+
+
 # host-side scalar delegates --------------------------------------------------
 
 _delegate = _host if _host is not None else _py

@@ -306,6 +306,44 @@ def _miller_product(px, py, qx, qy):
     return tower.fq12_conj(f)
 
 
+def lane_product(px, py, qx, qy):
+    """``_miller_product`` of the C pairs of ONE item, at most
+    ``MAX_PAIRS`` pairs a K4 launch: px, py ``[C, 1, 16]``; qx, qy
+    ``[C, 1, 2, 16]``; returns f ``[1, 6, 2, 16]``.
+
+    K4 takes 1 to ``MAX_PAIRS`` pairs an item, so for C above that the C
+    pairs run as ``C // MAX_PAIRS`` items of ``MAX_PAIRS`` consecutive
+    pairs, plus one item of the remaining pairs, and the items' values are
+    multiplied in lane order.  The value equals the one-item product as an
+    Fq12 element (its limbs may differ): each pair's point and lines
+    evolve alone, the squaring is multiplicative, and conjugation commutes
+    with the product.  No padding pair is added (a pad pair's Miller value
+    is not 1)."""
+    C = px.shape[0]
+    if px.shape[1] != 1:
+        raise ValueError(f"lane_product takes one item, got {px.shape[1]}")
+    if C <= MAX_PAIRS:
+        return _miller_product(px, py, qx, qy)
+    G, r = divmod(C, MAX_PAIRS)
+    full = G * MAX_PAIRS
+
+    def grouped(a):
+        # [G * MAX_PAIRS, 1, ...] -> [MAX_PAIRS, G, ...]: item g holds
+        # lanes g * MAX_PAIRS ... g * MAX_PAIRS + MAX_PAIRS - 1
+        head = a[:full, 0]
+        return head.reshape(G, MAX_PAIRS, *head.shape[1:]).transpose(
+            0, 1).contiguous()
+
+    f = _miller_product(*(grouped(a) for a in (px, py, qx, qy)))
+    out = f[:1]
+    for g in range(1, G):
+        out = tower.fq12_mul(out, f[g:g + 1])
+    if r:
+        out = tower.fq12_mul(out, _miller_product(
+            px[full:], py[full:], qx[full:], qy[full:]))
+    return out
+
+
 def _exp_abs_x(g):
     """g^|x|: squaring runs (K5 on the card) + 5 multiplications."""
     acc = g

@@ -409,3 +409,39 @@ def capella_withdrawal_epoch(spec, n: int, seed: int = 0):
     blocks = build_epoch_blocks(spec, state, with_sync=True, seed=seed,
                                 address_changes={2: [signed]})
     return state, blocks
+
+
+def example_delta_inputs(n: int):
+    """Seeded ``DeltaInputs`` for ``n`` validators and their balances: the
+    port's copy of ``_example_inputs`` in the reference's
+    ``__graft_entry__.py``, the same draws from the same seed (42), so
+    both packages see the same registry."""
+    from consensus_specs_tpu_torch.ops.epoch import DeltaInputs
+
+    rng = np.random.default_rng(42)
+    eff = (rng.integers(16, 33, n) * 10**9).astype(np.int64)
+    eligible = rng.random(n) < 0.95
+    src = (rng.random(n) < 0.8) & eligible
+    tgt = src & (rng.random(n) < 0.9)
+    head = tgt & (rng.random(n) < 0.9)
+    total = int(np.sum(np.where(eligible, eff, 0), dtype=np.uint64))
+    inp = DeltaInputs(
+        effective_balance=eff,
+        eligible=eligible,
+        source_part=src,
+        target_part=tgt,
+        head_part=head,
+        incl_delay=np.where(src, rng.integers(1, 9, n), 1).astype(np.int64),
+        incl_proposer=rng.integers(0, n, n).astype(np.int64),
+        total_balance=total,
+        sqrt_total=int(np.sqrt(total)),
+        finality_delay=2,
+        base_reward_factor=64,
+        base_rewards_per_epoch=4,
+        proposer_reward_quotient=8,
+        inactivity_penalty_quotient=2**26,
+        min_epochs_to_inactivity_penalty=4,
+        effective_balance_increment=10**9,
+    )
+    balances = (rng.integers(16, 33, n) * 10**9).astype(np.int64)
+    return inp, balances

@@ -13,7 +13,9 @@ package's, at the minimal preset, BLS off in both (the firehose's setting).
   storm in the store, every admission ring within its cap;
 * the served head and head state root equal the port's literal journal
   replay and the reference node's on the reference's corpus;
-* the future blocks park even when their producer's thread is late;
+* the future blocks park even when their producer's thread is late, and
+  the junk flooder is still scored at the end even when its thread runs
+  early;
 * journal recovery and the finality stall, as in the reference;
 * the deep profile, ``slow`` as in the reference.
 """
@@ -160,6 +162,58 @@ def test_future_blocks_park_however_late_their_producer(bls_off,  # noqa: F811
     assert late
     assert adm["parked"] == adm["parked_released"] == len(corpus.future_slots)
     assert adm["orphans_expired"] == len(corpus.orphan_blocks)
+
+
+def test_flooder_stays_scored_however_early_its_thread_runs(bls_off,  # noqa: F811
+                                                           monkeypatch):
+    """The junk flooder is still scored when the run ends even when its
+    thread runs its whole schedule ahead of the chain: its clock waits
+    after the chain's first slot, up to its last, return at once, so every
+    scheduled charge lands early and would decay (0.75 a slot) for the
+    rest of the chain.  Its last charge waits for the chain's final tick:
+    the admission gate judges it after the run's last score decay."""
+    from consensus_specs_tpu_torch.node import admission
+    from consensus_specs_tpu_torch.node.service import Node
+
+    _, spec, _, state = pair()
+    _, corpus = _corpora()
+    first_slot = int(corpus.chain[0].message.slot)
+    last_slot = int(corpus.chain[-1].message.slot)
+    wait_for_clock, early = Node.wait_for_clock, []
+
+    def early_flooder(self, slot, timeout=None):
+        if (threading.current_thread().name == "adv-junk"
+                and first_slot < slot <= last_slot):
+            early.append(slot)
+            return True
+        return wait_for_clock(self, slot, timeout=timeout)
+
+    # the gate's charges and decays, in the order the apply loop made them
+    events, charge, decay = [], admission._charge_locked, admission.decay_scores
+
+    def logged_charge(producer, points):
+        events.append(("charge", producer))
+        return charge(producer, points)
+
+    def logged_decay(slots_advanced):
+        if slots_advanced > 0:
+            events.append(("decay", None))
+        return decay(slots_advanced)
+
+    monkeypatch.setattr(Node, "wait_for_clock", early_flooder)
+    monkeypatch.setattr(admission, "_charge_locked", logged_charge)
+    monkeypatch.setattr(admission, "decay_scores", logged_decay)
+    service.reset_stats()
+    stf.reset_stats()
+    adm = adversary.run_adversarial_firehose(
+        spec, state, corpus, **_RUN_KW)["admission"]
+    assert early == [s + 1 for s in corpus.duplicate_slots]
+    last_decay = max(i for i, e in enumerate(events) if e[0] == "decay")
+    last_charge = max(i for i, e in enumerate(events)
+                      if e == ("charge", "adv-junk"))
+    assert last_charge > last_decay
+    assert adm["producer_scores"]["adv-junk"] >= admission.CHARGE_MALFORMED
+    assert adm["quarantines"] >= 1
 
 
 def test_served_head_equals_the_reference_nodes(bls_off):  # noqa: F811

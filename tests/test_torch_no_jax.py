@@ -21,10 +21,12 @@
   network-facing layer (``node.adversary``, ``telemetry.soak``, ``p2p``,
   ``deposit_contract``, ``evm``) serves an adversarial firehose equal to
   its literal replay, draws the soak's fault plans, and runs the vendored
-  deposit contract's bytecode to ``DepositTree``'s root;
+  deposit contract's bytecode to ``DepositTree``'s root, and the process
+  fabric's six modules (``dist``) import (no fabric is started);
 * a static scan of the port's sources finds no such import, nor one of
   ``yaml``, and covers the vector layer's files, the serving path's, the
-  research layer's and the survival and network-facing layer's;
+  research layer's, the survival and network-facing layer's and the
+  process fabric's;
 * without ``device=`` the port runs on CUDA or raises — never quietly on
   the CPU (the soak's ``run_soak`` among its entry points).
 """
@@ -210,6 +212,11 @@ artifact = json.loads((Path(deposit_contract.__file__).parent / "vendor" /
 contract = evm.deploy(bytes.fromhex(artifact["bytecode"][2:]))
 assert contract.call("get_deposit_root()", [], [], static=True) == \
     deposit_contract.DepositTree().get_root()
+# the process fabric: imported (walk_packages above), no fabric started
+DIST_LAYER = ["dist", "dist.codec", "dist.dispatch", "dist.fabric",
+              "dist.worker", "dist.workloads"]
+missing = [m for m in DIST_LAYER if "consensus_specs_tpu_torch." + m not in names]
+assert missing == [], missing
 context.is_pytest = True
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
@@ -322,6 +329,20 @@ def test_static_scan_covers_the_survival_and_network_layer():
     # names the JAX package's vendor directory
     assert not [str(p.relative_to(ROOT)) for p in port.rglob("*.py")
                 if "consensus_specs_tpu/vendor" in p.read_text()]
+
+
+def test_static_scan_covers_the_process_fabric():
+    port = ROOT / PORT
+    layer = sorted((port / "dist").glob("*.py"))
+    assert [p.name for p in layer] == [
+        "__init__.py", "codec.py", "dispatch.py", "fabric.py", "worker.py",
+        "workloads.py"]
+    assert set(layer) <= set(port.rglob("*.py"))
+    assert [(str(p.relative_to(ROOT)), name) for p in layer
+            for name in _imports(p) if _is_forbidden(name)] == []
+    # the workers are the port's own module, never the reference's
+    fabric = (port / "dist" / "fabric.py").read_text()
+    assert '"-m", "consensus_specs_tpu_torch.dist.worker"' in fabric
 
 
 def test_soak_without_a_device_needs_cuda(monkeypatch, tmp_path):
